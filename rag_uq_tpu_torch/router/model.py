@@ -1,0 +1,167 @@
+"""Learned retrieval router, forward only: the counterpart of ``rag_uq_tpu/router/model.py``.
+
+``RouterModule`` computes the per-passage gate in eval mode: features from
+the EMA score statistics (or the batch's, until they are initialized), the
+``pool7`` pool-context features when configured, an MLP of
+``num_layers - 1`` hidden ReLU layers (dropout is the identity in eval), a
+final ``Linear(1)`` and a sigmoid. ``fuse_hybrid`` turns gate weights into
+rankable scores. The ``binary`` policy's mean runs over all columns, dead
+ones included (``router/model.py:79``), as the reference does. Training
+waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from rag_uq_tpu_torch.core.config import RouterConfig
+from rag_uq_tpu_torch.core.device import DeviceLike, resolve_device
+from rag_uq_tpu_torch.ops.topk import stable_topk
+
+_EPS = 1e-6
+STAT_NAMES = ("bm25_mean", "bm25_std", "dense_mean", "dense_std", "initialized")
+
+
+def normalize_towers(
+    config: RouterConfig, bm25: torch.Tensor, dense: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query tower normalization before the gate and the fuse:
+    "none" passes raw scores, "maxnorm" divides each tower by its per-query
+    pool max (floored at 1e-12)."""
+    if config.fuse_norm == "none":
+        return bm25, dense
+    if config.fuse_norm != "maxnorm":
+        raise ValueError(f"Unknown fuse_norm: {config.fuse_norm!r}")
+    b = bm25 / bm25.amax(dim=-1, keepdim=True).clamp(min=1e-12)
+    d = dense / dense.amax(dim=-1, keepdim=True).clamp(min=1e-12)
+    return b, d
+
+
+def fuse_hybrid(
+    config: RouterConfig, weights: torch.Tensor, bm25: torch.Tensor,
+    dense: torch.Tensor,
+) -> torch.Tensor:
+    """Deployment fuse: "soft" is w*dense + (1-w)*bm25; "binary" serves the
+    pure tower the per-query mean gate picks (dense when the mean > 0.5)."""
+    b, d = normalize_towers(config, bm25, dense)
+    if config.gate_policy == "binary":
+        wq = weights.mean(dim=-1, keepdim=True)
+        return torch.where(wq > 0.5, d, b)
+    if config.gate_policy != "soft":
+        raise ValueError(f"Unknown gate_policy: {config.gate_policy!r}")
+    return weights * d + (1.0 - weights) * b
+
+
+def _sample_std(x: torch.Tensor) -> torch.Tensor:
+    """Sample standard deviation (ddof=1) over all elements."""
+    n = x.numel()
+    var = ((x - x.mean()) ** 2).sum() / max(n - 1, 1)
+    return var.sqrt()
+
+
+class RouterModule(nn.Module):
+    """The gate MLP with its EMA score statistics as buffers (eval mode)."""
+
+    def __init__(self, config: RouterConfig):
+        super().__init__()
+        if config.use_batch_norm:
+            raise NotImplementedError("use_batch_norm is not ported yet")
+        if config.feature_set not in ("reference3", "pool7"):
+            raise ValueError(f"Unknown feature_set: {config.feature_set!r}")
+        self.config = config
+        width = 7 if config.feature_set == "pool7" else 3
+        self.hidden = nn.ModuleList()
+        for _ in range(config.num_layers - 1):
+            self.hidden.append(nn.Linear(width, config.hidden_dim))
+            width = config.hidden_dim
+        self.out = nn.Linear(width, 1)
+        for name, value in zip(STAT_NAMES, (0.0, 1.0, 0.0, 1.0, 0.0)):
+            self.register_buffer(name, torch.tensor(value))
+
+    def forward(self, bm25_scores: torch.Tensor, dense_scores: torch.Tensor) -> torch.Tensor:
+        """Per-passage gate weights [B, P] in [0, 1]; 1 favors dense."""
+        b, d = normalize_towers(self.config, bm25_scores.float(), dense_scores.float())
+        batch_b_mean, batch_b_std = b.mean(), _sample_std(b) + _EPS
+        batch_d_mean, batch_d_std = d.mean(), _sample_std(d) + _EPS
+        use_running = self.initialized > 0.5
+        b_norm = torch.where(
+            use_running,
+            (b - self.bm25_mean) / (self.bm25_std + _EPS),
+            (b - batch_b_mean) / (batch_b_std + _EPS),
+        )
+        d_norm = torch.where(
+            use_running,
+            (d - self.dense_mean) / (self.dense_std + _EPS),
+            (d - batch_d_mean) / (batch_d_std + _EPS),
+        )
+        cols = [b_norm, d_norm, d_norm - b_norm]
+        if self.config.feature_set == "pool7":
+            # Within-pool z-scores and each tower's broadcast top1-top2 gap.
+            n_p = b.shape[1]
+
+            def row_stats(x):
+                mean = x.mean(dim=1, keepdim=True)
+                var = ((x - mean) ** 2).sum(dim=1, keepdim=True) / max(n_p - 1, 1)
+                return mean, var.sqrt() + _EPS
+
+            bp_mean, bp_std = row_stats(b)
+            dp_mean, dp_std = row_stats(d)
+            if n_p >= 2:
+                b_top2 = stable_topk(b, 2)[0]
+                d_top2 = stable_topk(d, 2)[0]
+                b_gap = (b_top2[:, :1] - b_top2[:, 1:2]) / bp_std
+                d_gap = (d_top2[:, :1] - d_top2[:, 1:2]) / dp_std
+            else:
+                b_gap = torch.zeros_like(bp_mean)
+                d_gap = torch.zeros_like(dp_mean)
+            cols += [
+                (b - bp_mean) / bp_std,
+                (d - dp_mean) / dp_std,
+                b_gap.expand_as(b),
+                d_gap.expand_as(d),
+            ]
+        x = torch.stack(cols, dim=-1).reshape(-1, len(cols))
+        for layer in self.hidden:
+            x = torch.relu(layer(x))
+        return torch.sigmoid(self.out(x)).reshape(bm25_scores.shape)
+
+
+class RetrievalRouter:
+    """Holds a ``RouterModule`` (params and stats) on a device, in eval mode.
+
+    Weights are drawn from a ``torch.Generator`` seeded with ``seed`` at the
+    flax initializers' scale (normal kernels with std 1/sqrt(fan_in), zero
+    biases), or carried across from the JAX router with
+    ``convert.load_router``.
+    """
+
+    def __init__(
+        self, config: Optional[RouterConfig] = None, seed: int = 0,
+        device: DeviceLike = "cuda",
+    ):
+        self.config = config or RouterConfig()
+        self.device = resolve_device(device)
+        self.module = RouterModule(self.config)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for layer in [*self.module.hidden, self.module.out]:
+                fan_in = layer.weight.shape[1]
+                layer.weight.copy_(
+                    torch.randn(layer.weight.shape, generator=gen) / math.sqrt(fan_in)
+                )
+                layer.bias.zero_()
+        self.module.to(self.device).eval()
+        # Candidate-pool width the gate was trained on; serving clamps the
+        # gate to it (retrieval/fused.py::fuse_pools_select).
+        self.trained_num_passages: Optional[int] = None
+
+    @torch.no_grad()
+    def forward(self, bm25_scores, dense_scores) -> torch.Tensor:
+        """Per-passage gating weights in [0, 1]; 1 favors dense retrieval."""
+        b = torch.as_tensor(bm25_scores, dtype=torch.float32, device=self.device)
+        d = torch.as_tensor(dense_scores, dtype=torch.float32, device=self.device)
+        return self.module(b, d)
