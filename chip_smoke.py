@@ -7,10 +7,18 @@ Phases, each printing one line "phase <name> ok <seconds>":
 
   device  a CUDA card is required (the script fails without one);
   build   the CUDA kernel (nvcc) and the native tokenizer (g++), from the
-          sources in the checkout, into build/rag_uq_tpu_torch/;
+          sources in the checkout, into build/rag_uq_tpu_torch/; prints the
+          compiler's registers, spills and shared memory, and the counts of
+          HGMMA (wgmma) and UTMALDG (TMA load) instructions in the library's
+          SASS, and fails if either is zero;
   kernel  every kernel of the path against its plain PyTorch twin on the
-          card, at the main path's shapes and at the edge cases of
-          tests/test_pallas_topk.py, timed with CUDA events;
+          card: the edge cases of tests/test_pallas_topk.py, then at the
+          main path's shapes B = 2048 and 1, k = 128 and MAX_K, a ragged
+          query tile, a full index, all-negative scores past a partial last
+          tile, ties across the corpus-chunk boundaries, and fp16 and f32
+          corpora; timed with CUDA events beside its bound, the plain twin,
+          torch.matmul + torch.topk (library_ms) and torch.matmul alone
+          (library_matmul_ms), with the merge pass timed apart;
   slice   a 100k-passage index at bench.py's shape behind a QueryService
           (max_batch 2048, scatter-mode BM25, a pool7/maxnorm/binary router
           with seeded random weights) answering three 2048-query requests
@@ -33,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -56,6 +65,7 @@ CAP = 131_072  # the dense index's capacity at 100k rows (pow2 growth)
 # Published H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor rate, HBM.
 PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
 KERNEL_ATOL = 1e-3  # kernel vs plain twin: f32 sums of bf16 products, other order
+F32_ATOL = 1e-5  # f32 corpus: f32 FMA products on both sides (no TF32), other order
 FNV_PRIME = np.uint64(0x100000001B3)
 
 
@@ -84,17 +94,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_topk(kv, ki, pv, pi, what: str) -> float:
-    """Kernel result vs plain twin: values within KERNEL_ATOL, same dead
-    slots, indices equal or swapped only inside ties. Returns max |diff|."""
+def check_topk(kv, ki, pv, pi, what: str, atol: float = KERNEL_ATOL) -> float:
+    """Kernel result vs plain twin: values within atol, same dead slots,
+    indices equal or swapped only inside ties. Returns max |diff|."""
     kv, ki, pv, pi = (t.cpu().numpy() for t in (kv, ki, pv, pi))
     if not np.array_equal(np.isneginf(kv), np.isneginf(pv)) or not np.array_equal(ki < 0, pi < 0):
         raise AssertionError(f"{what}: dead slots differ")
     live = np.isfinite(pv)
     err = float(np.abs(kv[live] - pv[live]).max()) if live.any() else 0.0
-    if err > KERNEL_ATOL:
-        raise AssertionError(f"{what}: max |kernel - plain| = {err} > {KERNEL_ATOL}")
-    agree = tie_aware_agreement(kv, ki, pv, pi, rtol=0.0, atol=KERNEL_ATOL)
+    if err > atol:
+        raise AssertionError(f"{what}: max |kernel - plain| = {err} > {atol}")
+    agree = tie_aware_agreement(kv, ki, pv, pi, rtol=0.0, atol=atol)
     if agree["tie_aware_agreement"] != 1.0:
         raise AssertionError(f"{what}: indices disagree outside ties: {agree['violations'][:2]}")
     log(f"  {what}: max_abs_err {err:.3g}, index agreement raw "
@@ -120,8 +130,17 @@ def phase_build() -> None:
     built = ck.build()
     log(f"  nvcc {built.path.name}: {built.seconds:.2f}s")
     for line in built.log.splitlines():
-        if "Used" in line or "spill" in line or "smem" in line:
+        if "Used" in line or "spill" in line or "smem" in line or "entry function" in line:
             log(f"  {line.strip()}")
+    cuobjdump = Path(ck.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(built.path)],
+        capture_output=True, text=True, timeout=300, check=True,
+    ).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"  SASS: HGMMA {counts['HGMMA']} UTMALDG {counts['UTMALDG']}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"the library lacks wgmma or TMA loads: {counts}")
     t0 = time.perf_counter()
     native = native_binding.is_available()
     log(f"  tokenizer: {'native C++ (g++)' if native else 'Python fallback'} "
@@ -131,10 +150,18 @@ def phase_build() -> None:
 def phase_kernel(gen: torch.Generator) -> dict:
     dev = torch.device("cuda")
 
+    def unit(x):
+        return x / x.norm(dim=1, keepdim=True)
+
     def corpus(cap, dim, bsz):
         e = torch.randn((cap, dim), generator=gen, device=dev)
         q = torch.randn((bsz, dim), generator=gen, device=dev)
-        return (e / e.norm(dim=1, keepdim=True)).bfloat16(), q / q.norm(dim=1, keepdim=True)
+        return unit(e).bfloat16(), unit(q)
+
+    def case(what, e, q, size, k, atol=KERNEL_ATOL):
+        kv, ki = ck.cuda_cosine_topk(e, q, size, k)
+        pv, pi = ck.cosine_topk_plain(e, q, size, k)
+        return check_topk(kv, ki, pv, pi, what, atol), ki
 
     err = 0.0
     # The edge cases of tests/test_pallas_topk.py (feature widths are
@@ -148,41 +175,90 @@ def phase_kernel(gen: torch.Generator) -> dict:
         ("bf16 full", *corpus(256, 32, 4), 256, 6),
     ]
     for what, e, q, size, k in cases:
-        kv, ki = ck.cuda_cosine_topk(e, q, size, k)
-        pv, pi = ck.cosine_topk_plain(e, q, size, k)
-        err = max(err, check_topk(kv, ki, pv, pi, what))
+        err = max(err, case(what, e, q, size, k)[0])
 
-    # The main path's shapes: the whole index, a full batch and one query.
+    # The main path's shapes: the whole index, a full batch and one query,
+    # then the edge cases of the new kernel at the main capacity.
     emb, q = corpus(CAP, DIM, BATCH)
     for bsz in (BATCH, 1):
-        kv, ki = ck.cuda_cosine_topk(emb, q[:bsz], N_DOCS, POOL)
-        pv, pi = ck.cosine_topk_plain(emb, q[:bsz], N_DOCS, POOL)
-        err = max(err, check_topk(kv, ki, pv, pi, f"B={bsz} cap={CAP} D={DIM} k={POOL}"))
+        err = max(err, case(f"B={bsz} cap={CAP} D={DIM} k={POOL}", emb, q[:bsz], N_DOCS, POOL)[0])
+    for k in (128, ck.MAX_K):  # the two query tiles of kernel_config, and the pool limit
+        cfg = ck.kernel_config(emb.dtype, k)
+        err = max(err, case(f"k={k} (query tile {cfg.query_tile}, {cfg.stages} stages)",
+                            emb, q, N_DOCS, k)[0])
+    err = max(err, case("B=2047 (ragged query tile)", emb, q[:2047], N_DOCS, POOL)[0])
+    err = max(err, case(f"size=cap={CAP} (full index)", emb, q, CAP, POOL)[0])
+    # All scores negative: rows past `size` that the TMA fills with zeros
+    # would score 0 and win if they were not masked.
+    pos_e = unit(torch.randn((CAP, DIM), generator=gen, device=dev).abs()).bfloat16()
+    neg_q = -unit(torch.randn((BATCH, DIM), generator=gen, device=dev).abs())
+    err = max(err, case("all scores negative, size=100000", pos_e, neg_q, N_DOCS, POOL)[0])
+    # Ties across chunk boundaries: query i finds four identical rows, two
+    # on each side of the i-th boundary; the lowest rows must come first.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = ck.kernel_config(emb.dtype, POOL)
+    n_chunks, chunk_rows = ck.chunking(BATCH, N_DOCS, cfg.query_tile, n_sm)
+    tie_e = emb.clone()
+    planted = []
+    for i in range(n_chunks - 1):
+        b = (i + 1) * chunk_rows
+        tie_e[b - 2 : b + 2] = q[i].bfloat16()
+        planted.append((i, list(range(b - 2, b + 2))))
+    e_ties, ki = case(f"ties across {n_chunks - 1} chunk boundaries", tie_e, q, N_DOCS, POOL)
+    err = max(err, e_ties)
+    for i, rows in planted:
+        if ki[i, :4].tolist() != rows:
+            raise AssertionError(f"query {i}: tied rows {ki[i, :4].tolist()} != {rows}")
+    log(f"  planted ties: rows {planted[0][1]} first for query 0, and so on")
+    # fp16 and f32 corpora (f32: f32 FMA products, held to F32_ATOL).
+    err = max(err, case("fp16 corpus", emb.half(), q, N_DOCS, POOL)[0])
+    f32_err = case("f32 corpus", emb.float(), q, N_DOCS, POOL, F32_ATOL)[0]
 
-    ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, N_DOCS, POOL), reps=10)
+    ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, N_DOCS, POOL), reps=20)
     plain_ms = cuda_ms(lambda: ck.cosine_topk_plain(emb, q, N_DOCS, POOL), reps=5)
     live = emb[:N_DOCS]
+    q16 = q.bfloat16()
 
     def library():  # yardstick only: the port never calls this
-        return torch.topk(torch.matmul(q.bfloat16(), live.T), POOL)
+        return torch.topk(torch.matmul(q16, live.T), POOL)
 
-    library_ms = cuda_ms(library, reps=10)
+    def library_matmul():  # the products alone: yardstick only
+        return torch.matmul(q16, live.T)
+
+    library_ms = cuda_ms(library, reps=20)
+    library_matmul_ms = cuda_ms(library_matmul, reps=20)
+    # The merge pass alone, on the chunks' own sorted lists (each from the
+    # plain twin over its chunk's rows); its result must equal the kernel's.
+    part_v = torch.empty((BATCH, n_chunks, POOL), dtype=torch.float32, device=dev)
+    part_i = torch.empty((BATCH, n_chunks, POOL), dtype=torch.int32, device=dev)
+    for c in range(n_chunks):
+        lo, hi = c * chunk_rows, min((c + 1) * chunk_rows, N_DOCS)
+        v, i = ck.cosine_topk_plain(emb[lo:hi], q, hi - lo, POOL)
+        part_v[:, c], part_i[:, c] = v, torch.where(i >= 0, i + lo, i)
+    mv, mi = ck.merge_pass(part_v, part_i, POOL)
+    kv, ki = ck.cuda_cosine_topk(emb, q, N_DOCS, POOL)
+    check_topk(mv, mi, kv, ki, "merge pass alone vs the kernel")
+    merge_ms = cuda_ms(lambda: ck.merge_pass(part_v, part_i, POOL), reps=20)
     flops = 2.0 * BATCH * N_DOCS * DIM
     bytes_moved = N_DOCS * DIM * 2 + BATCH * DIM * 2 + BATCH * POOL * 8
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_moved / PEAK_BYTES_S * 1e3
     bound_ms = max(t_ops, t_bytes)
-    log(f"  cosine_topk B={BATCH} live={N_DOCS} cap={CAP} D={DIM} k={POOL}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms")
+    log(f"  cosine_topk B={BATCH} live={N_DOCS} cap={CAP} D={DIM} k={POOL} "
+        f"({n_chunks} chunks of {chunk_rows} rows, query tile {cfg.query_tile}, "
+        f"{cfg.stages} stages): kernel {ms:.4f} ms (merge pass {merge_ms:.4f} ms, "
+        f"{merge_ms / ms:.1%}), plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+        f"library matmul {library_matmul_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_ms / ms:.1%} of it), kernel - matmul {ms - library_matmul_ms:.4f} ms")
     if ms > 100.0:
         raise AssertionError(f"one launch takes {ms:.1f} ms, over the 100 ms ceiling")
     return {
         "name": "cosine_topk", "route": "cuda",
         "source": "rag_uq_tpu_torch/csrc/cosine_topk.cu",
         "replaces": "rag_uq_tpu/ops/pallas_topk.py:157",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "f32_max_abs_err": f32_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_matmul_ms": library_matmul_ms,
+        "merge_ms": merge_ms,
     }
 
 

@@ -2,14 +2,16 @@
 
 Counterpart of ``rag_uq_tpu/ops/pallas_topk.py::pallas_cosine_topk``, with the
 same contract: for every query the k corpus rows with the largest
-``q . e`` (bf16 operands, f32 accumulation), rows at or past ``size``
-masked, ties to the lowest row index, ``-1`` where the value is ``-inf``
-(fewer than k live rows, or the empty index). The Pallas constraints
-``cap % block == 0`` and ``1 <= fan <= k`` do not apply here.
+``q . e`` (operands in the corpus dtype, bf16, fp16 or f32; the queries are
+cast to it; f32 accumulation), rows at or past ``size`` masked, ties to the
+lowest row index, ``-1`` where the value is ``-inf`` (fewer than k live
+rows, or the empty index). The Pallas constraints ``cap % block == 0`` and
+``1 <= fan <= k`` do not apply here; k is at most ``MAX_K``.
 
 ``cuda_cosine_topk`` takes the plain version only for tensors on the CPU. For
-a CUDA tensor it launches the kernel or raises. The kernel is built with
-``nvcc`` at its first launch (``utils/build.py``) and loaded with ``ctypes``.
+a CUDA tensor it launches the kernel, in the configuration ``kernel_config``
+picks from the dtype and k, or raises. The kernel is built with ``nvcc`` at
+its first launch (``utils/build.py``) and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import ctypes
 import os
 import shutil
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -31,11 +34,55 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-MAX_K = 128
-_ROW_TILE = 64  # corpus rows per score tile in the kernel (BN)
-_QUERY_TILE = 64  # queries per block in the kernel (BQ)
-_BLOCKS_PER_SM = 2  # the kernel's launch bound at k <= 128
+MAX_K = 256
+SMEM_LIMIT = 232_448  # dynamic shared memory a block can use on an H100
+_ROW_TILE = 128  # corpus rows per score tile in the kernel (BN)
+_BOX_BYTES = 128  # width of a TMA box: one 128-byte swizzle row
+_MAX_STAGES = 6
+_SCRATCH_BYTES = 128 * 8  # a consumer warp's candidate scratch
 _MAX_CHUNKS = 64
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+@dataclass(frozen=True)
+class KernelConfig:
+    """One launch configuration of the kernel (see the comment in the .cu)."""
+
+    query_tile: int  # BQ: 128 (two consumer warpgroups) or 64 (one)
+    stages: int  # depth of the TMA ring
+    smem_bytes: int
+
+
+def smem_bytes(query_tile: int, k: int, stages: int) -> int:
+    """The kernel's shared memory, by the formula in ``csrc/cosine_topk.cu``."""
+    return (
+        1024
+        + stages * (query_tile + _ROW_TILE) * _BOX_BYTES
+        + query_tile * (k | 1) * 8
+        + (query_tile // 16) * _SCRATCH_BYTES
+        + stages * 16
+    )
+
+
+def kernel_config(dtype: torch.dtype, k: int) -> KernelConfig:
+    """The configuration the wrapper launches for a corpus dtype and a k.
+
+    Every box is 128 bytes wide whatever the dtype (64 bf16/fp16 or 32 f32
+    columns), so only k and the query tile set the shared memory. BQ = 128
+    where three stages fit beside the ``[BQ, k]`` lists (k <= 121), else 64;
+    then as many stages as fit, at most 6.
+    """
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes a bf16, fp16 or f32 corpus, got {dtype}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} is outside the kernel's limit [1, {MAX_K}]")
+    for bq in (128, 64):
+        fixed = smem_bytes(bq, k, 0)
+        stages = min(_MAX_STAGES, (SMEM_LIMIT - fixed) // ((bq + _ROW_TILE) * _BOX_BYTES + 16))
+        if stages >= 3 or (bq == 64 and stages >= 2):
+            return KernelConfig(bq, stages, smem_bytes(bq, k, stages))
+    raise ValueError(f"k={k} does not fit the kernel's shared memory")
+
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -60,35 +107,37 @@ def nvcc_path() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
+def load_library(name: str, flags: Tuple[str, ...]) -> Tuple[ctypes.CDLL, Built]:
+    """Compile the kernel with ``flags`` (cached on disk by source and flags)
+    and load it with its C functions typed."""
+    built = build_shared_library(name, [SOURCE], [nvcc_path(), *flags], timeout_s=600)
+    lib = ctypes.CDLL(str(built.path))
+    c = ctypes
+    lib.rag_cosine_topk.argtypes = [c.c_void_p, c.c_void_p, *[c.c_int] * 9, *[c.c_void_p] * 5]
+    lib.rag_cosine_topk.restype = c.c_int
+    lib.rag_cosine_topk_merge.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p,
+    ]
+    lib.rag_cosine_topk_merge.restype = c.c_int
+    return lib, built
+
+
 def build() -> Built:
     """Compile the kernel (once per process; cached on disk by source hash)."""
     global _lib, _built
     with _lock:
         if _lib is None:
-            built = build_shared_library(
-                "rag_cosine_topk", [SOURCE], [nvcc_path(), *NVCC_FLAGS],
-                timeout_s=600,
-            )
-            lib = ctypes.CDLL(str(built.path))
-            c = ctypes
-            lib.rag_cosine_topk.argtypes = [
-                c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
-                c.c_int, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p,
-                c.c_void_p, c.c_void_p,
-            ]
-            lib.rag_cosine_topk.restype = c.c_int
-            _lib, _built = lib, built
+            _lib, _built = load_library("rag_cosine_topk", NVCC_FLAGS)
         return _built
 
 
-def _chunking(n_queries: int, live: int, device: torch.device) -> Tuple[int, int]:
-    """(n_chunks, chunk_rows): enough blocks for one full wave on the card."""
+def chunking(n_queries: int, live: int, query_tile: int, n_sm: int) -> Tuple[int, int]:
+    """(n_chunks, chunk_rows): about one block per SM, chunks in row tiles."""
     if live == 0:
         return 1, _ROW_TILE
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    n_qtiles = -(-n_queries // _QUERY_TILE)
+    n_qtiles = -(-n_queries // query_tile)
     n_tiles = -(-live // _ROW_TILE)
-    n_chunks = max(1, min(_BLOCKS_PER_SM * n_sm // n_qtiles, n_tiles, _MAX_CHUNKS))
+    n_chunks = max(1, min(n_sm // n_qtiles, n_tiles, _MAX_CHUNKS))
     chunk_rows = -(-n_tiles // n_chunks) * _ROW_TILE
     return -(-live // chunk_rows), chunk_rows
 
@@ -99,7 +148,10 @@ def cuda_cosine_topk(
     """Exact top-k cosine (vals [B, k] f32, rows [B, k] int32; -1 = dead)."""
     cap = emb.shape[0]
     if not 1 <= k <= min(MAX_K, max(cap, 1)):
-        raise ValueError(f"k={k} must be in [1, min({MAX_K}, capacity={cap})]")
+        raise ValueError(
+            f"k={k} must be in [1, min({MAX_K}, capacity={cap})]; "
+            f"the kernel's limit is k <= {MAX_K}"
+        )
     if emb.device.type == "cpu":
         return cosine_topk_plain(emb, queries, size, k)
     if emb.device.type != "cuda" or queries.device != emb.device:
@@ -107,8 +159,7 @@ def cuda_cosine_topk(
             f"cosine top-k needs both tensors on one CUDA device or the CPU; "
             f"got {emb.device} and {queries.device}"
         )
-    if emb.dtype != torch.bfloat16:
-        raise TypeError(f"the kernel takes a bf16 corpus, got {emb.dtype}")
+    cfg = kernel_config(emb.dtype, k)
     if emb.dim() != 2 or queries.dim() != 2 or queries.shape[1] != emb.shape[1]:
         raise ValueError(f"shapes {tuple(emb.shape)} and {tuple(queries.shape)}")
     n_q, dim = queries.shape
@@ -121,14 +172,16 @@ def cuda_cosine_topk(
     idx = torch.empty((n_q, k), dtype=torch.int32, device=emb.device)
     if n_q == 0:
         return vals, idx
-    q = queries.to(torch.bfloat16).contiguous()
-    n_chunks, chunk_rows = _chunking(n_q, live, emb.device)
+    q = queries.to(emb.dtype).contiguous()  # as pallas_topk.py casts them
+    n_sm = torch.cuda.get_device_properties(emb.device).multi_processor_count
+    n_chunks, chunk_rows = chunking(n_q, live, cfg.query_tile, n_sm)
     part_v = torch.empty((n_q, n_chunks, k), dtype=torch.float32, device=emb.device)
     part_i = torch.empty((n_q, n_chunks, k), dtype=torch.int32, device=emb.device)
     build()
     with torch.cuda.device(emb.device):
         rc = _lib.rag_cosine_topk(
-            emb.data_ptr(), q.data_ptr(), n_q, dim, live, k, n_chunks,
+            emb.data_ptr(), q.data_ptr(), n_q, dim, live, k,
+            _DTYPE_CODES[emb.dtype], cfg.query_tile, cfg.stages, n_chunks,
             chunk_rows, part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), torch.cuda.current_stream(emb.device).cuda_stream,
         )
@@ -139,3 +192,31 @@ def cuda_cosine_topk(
 
 
 cuda_cosine_topk.launches = 0
+
+
+def merge_pass(
+    part_v: torch.Tensor, part_i: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's second pass alone, over [B, n_chunks, k] sorted lists.
+
+    For timing the pass apart (``chip_smoke.py``); the search path runs it
+    inside ``cuda_cosine_topk`` and never calls this.
+    """
+    if (part_v.dtype != torch.float32 or part_i.dtype != torch.int32
+            or part_v.shape != part_i.shape or part_v.dim() != 3 or part_v.shape[2] != k
+            or part_v.device.type != "cuda" or part_i.device != part_v.device
+            or not (part_v.is_contiguous() and part_i.is_contiguous())):
+        raise ValueError("the merge pass takes contiguous [B, n_chunks, k] f32 and int32 "
+                         "CUDA tensors")
+    n_q, n_chunks, _ = part_v.shape
+    vals = torch.empty((n_q, k), dtype=torch.float32, device=part_v.device)
+    idx = torch.empty((n_q, k), dtype=torch.int32, device=part_v.device)
+    build()
+    with torch.cuda.device(part_v.device):
+        rc = _lib.rag_cosine_topk_merge(
+            part_v.data_ptr(), part_i.data_ptr(), n_q, n_chunks, k, vals.data_ptr(),
+            idx.data_ptr(), torch.cuda.current_stream(part_v.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"cosine top-k merge launch failed: CUDA error {rc}")
+    return vals, idx

@@ -165,21 +165,27 @@ def test_cpu_wrapper_takes_plain_version_and_never_builds(rng, monkeypatch):
 
 
 def test_wrapper_rejects_bad_k(rng):
-    emb, q = _mk(rng, 256, 16, 2)
+    emb, q = _mk(rng, 512, 16, 2)
+    e, qq = torch.from_numpy(emb), torch.from_numpy(q)
+    with pytest.raises(ValueError, match=f"k <= {ck.MAX_K}"):
+        ck.cuda_cosine_topk(e, qq, 10, ck.MAX_K + 1)
     with pytest.raises(ValueError):
-        ck.cuda_cosine_topk(torch.from_numpy(emb), torch.from_numpy(q), 10, ck.MAX_K + 1)
-    with pytest.raises(ValueError):
-        ck.cuda_cosine_topk(torch.from_numpy(emb), torch.from_numpy(q), 10, 0)
+        ck.cuda_cosine_topk(e, qq, 10, 0)
+    vals, idx = ck.cuda_cosine_topk(e, qq, 300, 256)  # the new limit is accepted
+    assert vals.shape == idx.shape == (2, 256)
+    assert (idx[:, :300] >= 0).all()
 
 
-def test_chunking_covers_live_rows(monkeypatch):
-    """The kernel's chunk split covers exactly the live rows, in row tiles."""
-
-    class Props:
-        multi_processor_count = 132
-
-    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda _dev: Props)
-    for n_q, live in [(2048, 100_000), (1, 100_000), (3, 5), (64, 131_072), (5, 0)]:
-        n_chunks, rows = ck._chunking(n_q, live, torch.device("cuda"))
-        assert rows % 64 == 0 and 1 <= n_chunks <= 64
+@pytest.mark.parametrize("k", [1, 50, 121, 128, 256])
+def test_chunking_covers_live_rows(k):
+    """The kernel's chunk split covers every live row exactly once, in row
+    tiles, for both query tiles of kernel_config (k <= 121 and k > 121)."""
+    query_tile = ck.kernel_config(torch.bfloat16, k).query_tile
+    for n_q, live in [(2048, 100_000), (1, 100_000), (3, 5), (64, 131_072), (5, 0),
+                      (2047, 100_000), (20_000, 131_072)]:
+        n_chunks, rows = ck.chunking(n_q, live, query_tile, 132)
+        assert rows % 128 == 0 and 1 <= n_chunks <= 64
         assert n_chunks * rows >= live and (n_chunks - 1) * rows < max(live, 1)
+        starts = [c * rows for c in range(n_chunks)]
+        covered = sum(min(s + rows, live) - s for s in starts)
+        assert covered == live
