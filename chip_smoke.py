@@ -5,28 +5,51 @@ Usage, from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
 Phases, each printing one line "phase <name> ok <seconds>":
 
-  device  a CUDA card is required (the script fails without one);
-  build   the CUDA kernel (nvcc) and the native tokenizer (g++), from the
-          sources in the checkout, into build/rag_uq_tpu_torch/; prints the
-          compiler's registers, spills and shared memory, and the counts of
-          HGMMA (wgmma) and UTMALDG (TMA load) instructions in the library's
-          SASS, and fails if either is zero;
-  kernel  every kernel of the path against its plain PyTorch twin on the
-          card: the edge cases of tests/test_pallas_topk.py, then at the
-          main path's shapes B = 2048 and 1, k = 128 and MAX_K, a ragged
-          query tile, a full index, all-negative scores past a partial last
-          tile, ties across the corpus-chunk boundaries, and fp16 and f32
-          corpora; timed with CUDA events beside its bound, the plain twin,
-          torch.matmul + torch.topk (library_ms) and torch.matmul alone
-          (library_matmul_ms), with the merge pass timed apart;
-  slice   a 100k-passage index at bench.py's shape behind a QueryService
-          (max_batch 2048, scatter-mode BM25, a pool7/maxnorm/binary router
-          with seeded random weights) answering three 2048-query requests
-          and one single query; the kernel's launch count must rise, the
-          hits must be well formed and find their source passage far above
-          chance, and the fused query rerun with the plain dense twin must
-          agree under the tie rule.
+  device   a CUDA card is required (the script fails without one);
+  build    both CUDA libraries (the heap kernel csrc/cosine_topk.cu and the
+           large-k kernels csrc/cosine_topk_large.cu, one nvcc each, started
+           together) and the native tokenizer (g++), from the sources in the
+           checkout, into build/rag_uq_tpu_torch/; prints the compiler's
+           registers, spills and shared memory, and the counts of HGMMA
+           (wgmma) and UTMALDG (TMA load) instructions in the heap library's
+           SASS, and fails if either is zero;
+  kernel   the heap kernel against its plain PyTorch twin on the card: the
+           edge cases of tests/test_pallas_topk.py, then at the main path's
+           shapes B = 2048 and 1, k = 128 and MAX_K, a ragged query tile, a
+           full index, all-negative scores past a partial last tile, ties
+           across the corpus-chunk boundaries, and fp16 and f32 corpora;
+           timed with CUDA events beside its bound, the plain twin,
+           torch.matmul + torch.topk (library_ms) and torch.matmul alone
+           (library_matmul_ms), with the merge pass timed apart;
+  large_k  the k > MAX_K path against the plain twin: k = 257, 1000 and 8192
+           at the main shape, a ragged query count, fewer live rows than k,
+           ties across row-tile, compaction-step and query-chunk boundaries,
+           fp16 and f32 corpora, and D = 100 through DenseIndex (stored
+           padded to 104); each main-shape k timed beside its bound and
+           torch.matmul + torch.topk;
+  slice    a 100k-passage index at bench.py's shape behind a QueryService
+           (max_batch 2048, scatter-mode BM25, a pool7/maxnorm/binary router
+           with seeded random weights) answering three 2048-query requests
+           and one single query; the hits must be well formed and find their
+           source passage far above chance, and the fused query rerun with
+           the plain dense twin must agree under the tie rule;
+  twotier  the same index behind QueryService(sparse_mode="twotier"), three
+           2048-query requests: the same recall gate, the two-tier BM25 pool
+           against the scatter pool and the served hits against the scatter
+           service's under the tie rule, and the stage times of both pools;
+  ingest   2,000 new passages through QueryService.ingest with
+           delta_sync_fraction = 0.05: no full resync (the base device state
+           and generation), queries built from the new passages find them,
+           the delta BM25 pool equals a frozen-statistics oracle, and the
+           delta answers overlap a full resync's;
+  persist  the index saved to a temporary directory in the JAX package's
+           format and reloaded onto the card answers the same queries
+           identically (the fused query, and DenseIndex.search_batch at
+           k = 1000, the large-k path); serve_http on 127.0.0.1:0 answers
+           /healthz, /search, /ingest and /answer through urllib.
 
+Each of the four serving paths runs with the kernel's launch counts set to 0
+just before it and fails if the dense kernel was not launched in it.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 A watchdog dumps every thread's stack and exits non-zero if the run hangs.
 Needs no network; imports nothing of JAX.
@@ -40,7 +63,10 @@ import faulthandler
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 from unittest import mock
 
@@ -48,9 +74,13 @@ import numpy as np
 import torch
 
 from rag_uq_tpu_torch.cli.bench_sharded import tie_aware_agreement
-from rag_uq_tpu_torch.cli.serve import QueryService
-from rag_uq_tpu_torch.core.config import EmbedderConfig, router_recipe_v2
+from rag_uq_tpu_torch.cli.serve import QueryService, serve_http
+from rag_uq_tpu_torch.core.config import (
+    BM25Config, DenseIndexConfig, EmbedderConfig, router_recipe_v2,
+)
 from rag_uq_tpu_torch.core.types import Document
+from rag_uq_tpu_torch.embed.hash_embed import Sha256Embedder
+from rag_uq_tpu_torch.index.dense import DenseIndex
 from rag_uq_tpu_torch.native import binding as native_binding
 from rag_uq_tpu_torch.ops import cosine_topk as ck
 from rag_uq_tpu_torch.retrieval import fused as fused_mod
@@ -64,6 +94,8 @@ N_DOCS, DIM, VOCAB, DOC_LEN, BATCH, K, POOL = 100_000, 768, 30_000, 40, 2048, 10
 CAP = 131_072  # the dense index's capacity at 100k rows (pow2 growth)
 # Published H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor rate, HBM.
 PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
+DELTA_FRACTION, N_INGEST = 0.05, 2000  # live ingest: 2% of the base, under the fraction
+LARGE_KS = (257, 1000, 8192)
 KERNEL_ATOL = 1e-3  # kernel vs plain twin: f32 sums of bf16 products, other order
 F32_ATOL = 1e-5  # f32 corpus: f32 FMA products on both sides (no TF32), other order
 FNV_PRIME = np.uint64(0x100000001B3)
@@ -127,11 +159,14 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    built = ck.build()
-    log(f"  nvcc {built.path.name}: {built.seconds:.2f}s")
-    for line in built.log.splitlines():
-        if "Used" in line or "spill" in line or "smem" in line or "entry function" in line:
-            log(f"  {line.strip()}")
+    t0 = time.perf_counter()
+    built, large = ck.build_all()
+    log(f"  both libraries built in {time.perf_counter() - t0:.2f}s (in parallel)")
+    for lib in (built, large):
+        log(f"  nvcc {lib.path.name}: {lib.seconds:.2f}s")
+        for line in lib.log.splitlines():
+            if "Used" in line or "spill" in line or "smem" in line or "entry function" in line:
+                log(f"  {line.strip()}")
     cuobjdump = Path(ck.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run(
         [str(cuobjdump), "-sass", str(built.path)],
@@ -262,6 +297,82 @@ def phase_kernel(gen: torch.Generator) -> dict:
     }
 
 
+def phase_kernel_large(gen: torch.Generator) -> dict:
+    """The k > MAX_K path (csrc/cosine_topk_large.cu) against the plain twin."""
+    dev = torch.device("cuda")
+
+    def unit(x):
+        return x / x.norm(dim=1, keepdim=True)
+
+    def case(what, e, q, size, k, atol=KERNEL_ATOL):
+        kv, ki = ck.cuda_cosine_topk(e, q, size, k)
+        pv, pi = ck.cosine_topk_plain(e, q, size, k)
+        return check_topk(kv, ki, pv, pi, what, atol), ki
+
+    emb = unit(torch.randn((CAP, DIM), generator=gen, device=dev)).bfloat16()
+    q = unit(torch.randn((BATCH, DIM), generator=gen, device=dev))
+    live, q16 = emb[:N_DOCS], q.bfloat16()
+    err, rows = 0.0, []
+    for k in LARGE_KS:
+        err = max(err, case(f"k={k} B={BATCH} live={N_DOCS} D={DIM}", emb, q, N_DOCS, k)[0])
+        ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, N_DOCS, k), reps=5)
+        plain_ms = cuda_ms(lambda: ck.cosine_topk_plain(emb, q, N_DOCS, k), reps=2)
+        library_ms = cuda_ms(lambda: torch.topk(torch.matmul(q16, live.T), k), reps=5)
+        flops = 2.0 * BATCH * N_DOCS * DIM
+        bytes_moved = N_DOCS * DIM * 2 + BATCH * DIM * 2 + BATCH * k * 8
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_moved / PEAK_BYTES_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        log(f"  cosine_topk large k={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of it)")
+        rows.append({"k": k, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+    err = max(err, case("k=1000 B=2047 (ragged query count)", emb, q[:2047], N_DOCS, 1000)[0])
+    err = max(err, case("k=1000, 300 live rows (fewer than k)", emb, q, 300, 1000)[0])
+    err = max(err, case("k=300, empty index", emb, q[:7], 0, 300)[0])
+    # Ties across boundaries: four identical rows straddle a 128-row score
+    # tile and a 1024-row compaction step of the select, for query i the
+    # i-th such boundary; the queries run in chunks of 300 (a small score
+    # budget), so the planted queries sit in different chunks.
+    tie_e = emb.clone()
+    planted = []
+    for i in range(0, BATCH, 300):
+        b = 1024 * (i // 300 + 1)
+        tie_e[b - 2 : b + 2] = q[i].bfloat16()
+        planted.append((i, list(range(b - 2, b + 2))))
+    budget = ck.SCORE_BUDGET
+    ck.SCORE_BUDGET = 4 * N_DOCS * 300
+    try:
+        e_ties, ki = case(f"k=1000, ties across tiles, steps and {-(-BATCH // 300)} query chunks",
+                          tie_e, q, N_DOCS, 1000)
+    finally:
+        ck.SCORE_BUDGET = budget
+    err = max(err, e_ties)
+    for i, tied in planted:
+        if ki[i, :4].tolist() != tied:
+            raise AssertionError(f"query {i}: tied rows {ki[i, :4].tolist()} != {tied}")
+    log(f"  planted ties: rows {planted[1][1]} first for query {planted[1][0]}, and so on")
+    err = max(err, case("k=500 fp16 corpus", emb.half(), q, N_DOCS, 500)[0])
+    f32_err = case("k=500 f32 corpus", emb.float(), q, N_DOCS, 500, F32_ATOL)[0]
+
+    # D = 100 through DenseIndex: stored zero-padded to 104 columns.
+    index = DenseIndex(embedder=Sha256Embedder(100),
+                       config=DenseIndexConfig(embedding_dim=100, initial_capacity=CAP),
+                       device="cuda")
+    vecs = torch.randn((N_DOCS, 100), generator=gen, device=dev).cpu().numpy()
+    index.add_precomputed([Document(str(i), "") for i in range(N_DOCS)], vecs)
+    if tuple(index._emb.shape) != (CAP, 104) or tuple(index.embeddings.shape) != (N_DOCS, 100):
+        raise AssertionError(f"padded storage {tuple(index._emb.shape)}")
+    q100 = unit(torch.randn((BATCH, 100), generator=gen, device=dev))
+    for k in (POOL, 1000):
+        kv, ki = index.search_batch([], top_k=k, q_vecs=q100)
+        pv, pi = ck.cosine_topk_plain(index._emb, index._padded(q100), N_DOCS, k)
+        err = max(err, check_topk(torch.from_numpy(kv), torch.from_numpy(ki), pv, pi,
+                                  f"D=100 via DenseIndex (stored 104), k={k}"))
+    del index
+    return {"max_abs_err": err, "f32_max_abs_err": f32_err, "cases": rows}
+
+
 def fnv_features(doc_ids: np.ndarray, buckets: int) -> np.ndarray:
     """The NgramHashEmbedder feature ids of term-id passages, in bulk.
 
@@ -286,48 +397,121 @@ def fnv_features(doc_ids: np.ndarray, buckets: int) -> np.ndarray:
     return feats.astype(np.int32)
 
 
-def stage_times(retriever, router, queries) -> None:
-    """Split one 2048-query request into host encoding and the fused query,
-    and the fused query's BM25 pool (host clock, synchronized)."""
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+def timed(fn):
+    """(fn(), seconds) on the host clock, synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
+
+def stage_times(retriever, router, queries) -> dict:
+    """Split one 2048-query request into host encoding and the fused query,
+    and time the fused query's BM25 pool in both sparse modes (host clock,
+    synchronized)."""
     q_vecs, t_embed = timed(lambda: retriever.dense_index.embed_queries(queries))
     qterms, t_terms = timed(lambda: fused_mod.encode_for_fused(
         retriever.bm25_index, queries, active_compaction=True))
     state = retriever._fused_state()
+    dev = retriever.bm25_index._device
     fused = fused_mod.make_fused_hybrid_query(
-        router_module=router.module, k=K, pool=POOL,
-        beam=retriever.bm25_index._device["beam"], sparse_mode="scatter")
+        router_module=router.module, k=K, pool=POOL, beam=dev["beam"], sparse_mode="scatter")
     _, t_fused = timed(lambda: fused(state, q_vecs, qterms))
-    _, t_bm25 = timed(lambda: fused_mod.bm25_ops.topk_lowscatter(
-        state["low_ranges"], state["post_packed"], state["term_row"], state["impact"],
-        qterms["qtids_base"], POOL, beam=retriever.bm25_index._device["beam"],
-        impact_scale=state["impact_scale"], active_rows=qterms["active_rows"],
-        rows_compact=qterms["rows_compact"], low_blocks=state.get("low_blocks"),
-        low_row=state.get("low_row")))
+    twotier = fused_mod.make_fused_hybrid_query(
+        router_module=router.module, k=K, pool=POOL, beam=dev["beam"], nonneg=dev["nonneg"],
+        sparse_mode="twotier")
+    _, t_fused_twotier = timed(lambda: twotier(state, q_vecs, qterms))
+    _, t_bm25 = timed(lambda: scatter_pool(state, qterms, dev))
+    _, t_twotier = timed(lambda: twotier_pool(state, qterms, dev))
     log(f"  one 2048-query request: host query embedding {t_embed:.4f} s, host term "
         f"encoding {t_terms:.4f} s (active rows {qterms['active_rows'].shape[0]}), "
-        f"fused query {t_fused:.4f} s, of which BM25 pool {t_bm25:.4f} s")
+        f"fused query {t_fused:.4f} s (scatter) / {t_fused_twotier:.4f} s (twotier); "
+        f"BM25 pool {t_bm25:.4f} s (scatter) / {t_twotier:.4f} s (twotier, impact "
+        f"{tuple(dev['impact'].shape)} {dev['impact'].dtype}, beam {dev['beam']})")
+    return {"scatter_pool_s": t_bm25, "twotier_pool_s": t_twotier}
+
+
+def scatter_pool(state, qterms, dev):
+    return fused_mod.bm25_ops.topk_lowscatter(
+        state["low_ranges"], state["post_packed"], state["term_row"], state["impact"],
+        qterms["qtids_base"], POOL, beam=dev["beam"], impact_scale=state["impact_scale"],
+        active_rows=qterms["active_rows"], rows_compact=qterms["rows_compact"],
+        low_blocks=state.get("low_blocks"), low_row=state.get("low_row"))
+
+
+def twotier_pool(state, qterms, dev):
+    return fused_mod.bm25_ops.topk_twotier(
+        state["low_ranges"], state["post_packed"], state["term_row"], state["impact"],
+        qterms["qtids_base"], POOL, beam=dev["beam"], impact_scale=state["impact_scale"],
+        nonneg=dev["nonneg"])
+
+
+def serve(service, requests):
+    """Each request through service.search, with the kernel's launch counts
+    set to 0 just before and read just after. Returns (results, seconds,
+    launches, large_launches)."""
+    ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+    results, seconds = [], []
+    for _, queries in requests:
+        t0 = time.perf_counter()
+        results.append(service.search(queries, k=K))
+        seconds.append(time.perf_counter() - t0)
+    launches, large = ck.cuda_cosine_topk.launches, ck.cuda_cosine_topk.large_launches
+    if launches < len(requests):
+        raise AssertionError(f"the kernel ran {launches} times for {len(requests)} requests")
+    return results, seconds, launches, large
+
+
+def source_recall(requests, results, what: str) -> float:
+    """Well-formed hits (K distinct a query) and the share of queries whose
+    source passage is among them; fails under 0.5."""
+    hits = found = 0
+    for (src, _), res in zip(requests, results):
+        if len(res) != len(src):
+            raise AssertionError(f"{what}: a request lost queries")
+        for s, row in zip(src, res):
+            if len(row) != K:
+                raise AssertionError(f"{what}: a query returned {len(row)} hits, not {K}")
+            ids = [h["doc_id"] for h in row]
+            if len(set(ids)) != K:
+                raise AssertionError(f"{what}: duplicate hits")
+            hits += 1
+            found += str(s) in ids
+    recall = found / hits
+    if recall < 0.5:
+        raise AssertionError(f"{what}: source-passage recall@{K} {recall:.3f}")
+    return recall
+
+
+def zipf_passages(rng, n: int) -> np.ndarray:
+    """[n, DOC_LEN] term ids, Zipf over VOCAB (bench.py's recipe)."""
+    ranks = np.arange(1, VOCAB + 1, dtype=np.float64)
+    p = (1.0 / ranks) / (1.0 / ranks).sum()
+    return rng.choice(VOCAB, size=(n, DOC_LEN), p=p)
+
+
+def query_batch(rng, doc_ids: np.ndarray, n: int, offset: int = 0):
+    """(source positions, queries): 6 terms taken from a source passage."""
+    src = rng.integers(0, doc_ids.shape[0], size=n)
+    terms = doc_ids[src][:, :: DOC_LEN // 6][:, :6]
+    return src + offset, [" ".join(map(str, row)) for row in terms]
 
 
 def phase_slice(seed: int, device_name: str) -> dict:
     rng = np.random.default_rng(seed)
-    ranks = np.arange(1, VOCAB + 1, dtype=np.float64)
-    p = (1.0 / ranks) / (1.0 / ranks).sum()
     t0 = time.perf_counter()
-    doc_ids = rng.choice(VOCAB, size=(N_DOCS, DOC_LEN), p=p)
+    doc_ids = zipf_passages(rng, N_DOCS)
     texts = [" ".join(map(str, row)) for row in doc_ids]
     docs = [Document(str(i), t) for i, t in enumerate(texts)]
     log(f"  corpus: {N_DOCS} passages x {DOC_LEN} terms, Zipf over {VOCAB}: "
         f"{time.perf_counter() - t0:.2f}s")
 
     t0 = time.perf_counter()
-    retriever = HybridRetriever(embedder_config=EmbedderConfig(dim=DIM), device="cuda")
+    # delta_sync_fraction changes nothing until the ingest phase adds docs.
+    bm25_config = BM25Config(delta_sync_fraction=DELTA_FRACTION)
+    retriever = HybridRetriever(bm25_config=bm25_config,
+                                embedder_config=EmbedderConfig(dim=DIM), device="cuda")
     retriever.bm25_index.add_documents(docs)
     log(f"  bm25 host build ({'native' if retriever.bm25_index.uses_native else 'python'}): "
         f"{time.perf_counter() - t0:.2f}s, {retriever.bm25_index._n_postings} postings")
@@ -363,51 +547,22 @@ def phase_slice(seed: int, device_name: str) -> dict:
     log(f"  bm25 device sync: {time.perf_counter() - t0:.2f}s, impact "
         f"{tuple(dev_state['impact'].shape)} {dev_state['impact'].dtype}, beam {dev_state['beam']}")
 
-    # Queries: 6 terms taken from a source passage (bench.py's recipe).
-    def batch(n):
-        src = rng.integers(0, N_DOCS, size=n)
-        terms = doc_ids[src][:, :: DOC_LEN // 6][:, :6]
-        return src, [" ".join(map(str, row)) for row in terms]
-
-    requests = [batch(BATCH) for _ in range(3)] + [batch(1)]
+    requests = [query_batch(rng, doc_ids, BATCH) for _ in range(3)] + [query_batch(rng, doc_ids, 1)]
     router = RetrievalRouter(router_recipe_v2(), seed=seed, device="cuda")
     service = QueryService(retriever, router=router, max_batch=BATCH, sparse_mode="scatter")
     try:
-        ck.cuda_cosine_topk.launches = 0
-        results, seconds = [], []
-        for src, queries in requests:
-            t0 = time.perf_counter()
-            results.append(service.search(queries, k=K))
-            seconds.append(time.perf_counter() - t0)
-        launches = ck.cuda_cosine_topk.launches
+        results, seconds, launches, _ = serve(service, requests)
     finally:
         service.close()
-    if launches < len(requests):
-        raise AssertionError(f"the kernel ran {launches} times for {len(requests)} requests")
-
-    hits = found = 0
-    for (src, _), res in zip(requests, results):
-        if len(res) != len(src):
-            raise AssertionError("a request lost queries")
-        for s, row in zip(src, res):
-            if len(row) != K:
-                raise AssertionError(f"a query returned {len(row)} hits, not {K}")
-            ids = [h["doc_id"] for h in row]
-            if len(set(ids)) != K:
-                raise AssertionError("duplicate hits")
-            hits += 1
-            found += str(s) in ids
-    recall = found / hits
-    if recall < 0.5:
-        raise AssertionError(f"source-passage recall@{K} {recall:.3f} (chance {K / N_DOCS})")
+    recall = source_recall(requests, results, "scatter")
     lat = sorted(seconds[:3])
-    log(f"  served {hits} queries in {len(requests)} requests, kernel launches {launches}, "
-        f"source recall@{K} {recall:.4f} (chance {K / N_DOCS:.0e})")
+    log(f"  served {sum(len(s) for s, _ in requests)} queries in {len(requests)} requests, "
+        f"kernel launches {launches}, source recall@{K} {recall:.4f} (chance {K / N_DOCS:.0e})")
     log(f"  2048-query request latency s {[round(x, 4) for x in seconds[:3]]}, "
         f"median {lat[1]:.4f} s = {BATCH / lat[1]:.1f} queries/s; single query "
         f"{seconds[3]:.4f} s; on {device_name}")
 
-    stage_times(retriever, router, requests[1][1])
+    pools = stage_times(retriever, router, requests[1][1])
 
     # The same fused query with the plain dense twin, on the same card.
     _, queries = requests[0]
@@ -427,7 +582,231 @@ def phase_slice(seed: int, device_name: str) -> dict:
     log(f"  fused query kernel vs plain twin: raw {agree['raw_idx_agreement']:.6f}, "
         f"tie-aware {agree['tie_aware_agreement']:.6f}, max |score diff| "
         f"{agree['rankwise_max_abs_score_diff']:.3g}")
-    return {"launches": launches}
+    return {"retriever": retriever, "router": router, "rng": rng, "doc_ids": doc_ids,
+            "requests": requests, "results": results, "launches": launches,
+            "median_s": lat[1], **pools}
+
+
+def phase_twotier(ctx: dict) -> int:
+    """The JAX package's default BM25 pool (topk_twotier) behind QueryService."""
+    retriever, router, requests = ctx["retriever"], ctx["router"], ctx["requests"][:3]
+    service = QueryService(retriever, router=router, max_batch=BATCH, sparse_mode="twotier")
+    try:
+        results, seconds, launches, _ = serve(service, requests)
+    finally:
+        service.close()
+    recall = source_recall(requests, results, "twotier")
+    lat = sorted(seconds)
+    log(f"  twotier: 3 requests, kernel launches {launches}, source recall@{K} {recall:.4f}, "
+        f"latency s {[round(x, 4) for x in seconds]}, median {lat[1]:.4f} s "
+        f"(scatter {ctx['median_s']:.4f} s)")
+    # The served hits against the scatter service's, under the tie rule.
+    agree_min = 1.0
+    for res_t, res_s in zip(results, ctx["results"]):
+        tv = np.array([[h["score"] for h in row] for row in res_t], dtype=np.float32)
+        sv = np.array([[h["score"] for h in row] for row in res_s], dtype=np.float32)
+        ti = np.array([[int(h["doc_id"]) for h in row] for row in res_t])
+        si = np.array([[int(h["doc_id"]) for h in row] for row in res_s])
+        agree = tie_aware_agreement(tv, ti, sv, si, rtol=1e-4, atol=1e-5)
+        agree_min = min(agree_min, agree["tie_aware_agreement"])
+        if agree["tie_aware_agreement"] != 1.0:
+            raise AssertionError(f"twotier vs scatter hits: {agree['violations'][:2]}")
+    # The two BM25 pools themselves, on one request's terms.
+    state = retriever._fused_state()
+    dev = retriever.bm25_index._device
+    qterms = fused_mod.encode_for_fused(retriever.bm25_index, requests[0][1],
+                                        active_compaction=True)
+    tv, ti = twotier_pool(state, qterms, dev)
+    sv, si = scatter_pool(state, qterms, dev)
+    tv, ti, sv, si = (t.cpu().numpy() for t in (tv, ti, sv, si))
+    live = (tv > 0) | (sv > 0)  # the positive-scores contract applies to both
+    tv, sv = np.where(live, tv, 0.0), np.where(live, sv, 0.0)
+    ti, si = np.where(live, ti, -1), np.where(live, si, -1)
+    pool_agree = tie_aware_agreement(tv, ti, sv, si, rtol=1e-5, atol=1e-5)
+    if pool_agree["tie_aware_agreement"] != 1.0:
+        raise AssertionError(f"twotier vs scatter pool: {pool_agree['violations'][:2]}")
+    log(f"  twotier vs scatter: hits tie-aware {agree_min:.6f}; BM25 pool raw "
+        f"{pool_agree['raw_idx_agreement']:.6f}, tie-aware "
+        f"{pool_agree['tie_aware_agreement']:.6f}, max |score diff| "
+        f"{pool_agree['rankwise_max_abs_score_diff']:.3g}")
+    return launches
+
+
+def phase_ingest(ctx: dict) -> int:
+    """Live ingest through QueryService with delta_sync_fraction > 0."""
+    retriever, rng = ctx["retriever"], ctx["rng"]
+    bm25 = retriever.bm25_index
+    base_device, base_docs, generation = bm25._device, bm25._base["docs"], bm25.sync_generation
+    new_ids = zipf_passages(rng, N_INGEST)
+    new_docs = [Document(str(N_DOCS + i), " ".join(map(str, row)))
+                for i, row in enumerate(new_ids)]
+    requests = [query_batch(rng, new_ids, N_INGEST, offset=N_DOCS)]
+    service = QueryService(retriever, router=ctx["router"], max_batch=BATCH,
+                           sparse_mode="scatter")
+    try:
+        t0 = time.perf_counter()
+        stats = service.ingest(new_docs)
+        t_ingest = time.perf_counter() - t0
+        results, seconds, launches, _ = serve(service, requests)
+    finally:
+        service.close()
+    if stats["total_documents"] != N_DOCS + N_INGEST or len(retriever) != N_DOCS + N_INGEST:
+        raise AssertionError(f"ingest stats {stats}")
+    if bm25._device is not base_device or bm25._base["docs"] != base_docs:
+        raise AssertionError("the ingest ran a full resync")
+    if bm25._delta_device is None or bm25.sync_generation != generation + 1:
+        raise AssertionError(f"no delta sync (generation {generation} -> {bm25.sync_generation})")
+    recall = source_recall(requests, results, "new passages")
+    log(f"  ingested {N_INGEST} passages in {t_ingest:.4f} s (host add + delta sync), no full "
+        f"resync (base device state kept, generation +1); {N_INGEST} queries from the new "
+        f"passages in {seconds[0]:.4f} s, source recall@{K} {recall:.4f}, kernel launches "
+        f"{launches}")
+
+    # The delta BM25 pool (the two-tier base pool and the delta's, merged)
+    # against an independent frozen-statistics oracle: the base's scatter
+    # pool (the same bf16 impacts) beside the delta's exhaustive scores of
+    # every new passage, one exact top-k. Queries from old and new passages.
+    delta = bm25._delta_device
+    dev = bm25._device
+    _, old_q = query_batch(rng, ctx["doc_ids"], 512)
+    queries = old_q + requests[0][1][:512]
+    vals, idx = bm25.search_batch(queries, top_k=POOL, exact=False)
+    qterms = fused_mod.encode_for_fused(bm25, queries, active_compaction=True)
+    state = retriever._fused_state()
+    bv, bi = scatter_pool(state, qterms, dev)
+    delta_scores = fused_mod.bm25_ops.score_all(delta["indptr"], delta["post_doc"],
+                                                delta["post_w"], qterms["qtids"],
+                                                delta["n_docs_cap"], delta["max_df"])
+    new_rows = torch.arange(base_docs, base_docs + N_INGEST, device=bi.device)
+    cat_v = torch.cat([bv, delta_scores[:, :N_INGEST]], dim=1)
+    cat_i = torch.cat([bi.long(), new_rows.expand(len(queries), -1)], dim=1)
+    ov, sel = fused_mod.bm25_ops.topk_from_scores(cat_v, POOL)
+    oi = torch.where(sel >= 0, torch.gather(cat_i, 1, sel.clamp(min=0).long()), -1)
+    agree = tie_aware_agreement(vals, idx, ov.cpu().numpy(), oi.cpu().numpy(),
+                                rtol=1e-5, atol=1e-5)
+    if agree["tie_aware_agreement"] != 1.0:
+        raise AssertionError(f"delta pool vs frozen-stats oracle: {agree['violations'][:2]}")
+    from_delta = float((idx >= base_docs).mean())
+    # The fused answers with the live delta against a full resync's (new
+    # idf and avgdl): the same hits up to the bounded staleness.
+    live_v, live_p = retriever.hybrid_search_batch(queries, top_k=K, router=ctx["router"])
+    full_state = fused_mod.build_index_state(retriever.dense_index, bm25, allow_delta=False)
+    if bm25._delta_device is not None or bm25._base["docs"] != N_DOCS + N_INGEST:
+        raise AssertionError("_require_full_sync did not collapse the delta")
+    fused = fused_mod.make_fused_hybrid_query(
+        router_module=ctx["router"].module, k=K, pool=POOL, beam=bm25._device["beam"],
+        nonneg=bm25._device["nonneg"])
+    full_v, full_p = fused(full_state, retriever.dense_index.embed_queries(queries),
+                           fused_mod.encode_for_fused(bm25, queries))
+    full_p = full_p.cpu().numpy()
+    overlap = np.mean([len(set(a) & set(b)) / K for a, b in zip(live_p, full_p)])
+    if overlap < 0.8:
+        raise AssertionError(f"delta answers overlap a full resync's only {overlap:.3f}")
+    log(f"  delta BM25 pool vs frozen-stats oracle ({len(queries)} queries): raw "
+        f"{agree['raw_idx_agreement']:.6f}, tie-aware {agree['tie_aware_agreement']:.6f}, "
+        f"max |score diff| {agree['rankwise_max_abs_score_diff']:.3g}, {from_delta:.1%} of "
+        f"the pool from the delta; fused top-{K} overlap with a full resync {overlap:.4f}")
+    return launches
+
+
+def http_json(port: int, path: str, payload=None):
+    url = f"http://127.0.0.1:{port}{path}"
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def phase_persist(ctx: dict) -> tuple:
+    """Save, reload onto the card, answer identically; then HTTP."""
+    retriever, rng = ctx["retriever"], ctx["rng"]
+    n = len(retriever)
+    _, queries = query_batch(rng, ctx["doc_ids"], BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        bm25_path, dense_dir = str(Path(tmp) / "bm25.json"), str(Path(tmp) / "dense")
+        t0 = time.perf_counter()
+        retriever.bm25_index.save(bm25_path)
+        retriever.dense_index.save(dense_dir)
+        t_save = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        loaded = HybridRetriever(bm25_persist_path=bm25_path, dense_persist_directory=dense_dir,
+                                 bm25_config=BM25Config(delta_sync_fraction=DELTA_FRACTION),
+                                 embedder_config=EmbedderConfig(dim=DIM), device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    log(f"  saved {n} passages ({size / 2**20:.1f} MiB) in {t_save:.2f} s, reloaded onto the "
+        f"card in {t_load:.2f} s")
+    if len(loaded) != n or loaded.documents.ids != retriever.documents.ids:
+        raise AssertionError("the reloaded index lost documents")
+    ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+    # The reloaded device state equals the original's, array by array.
+    a_state, b_state = retriever._fused_state(), loaded._fused_state()
+    if set(a_state) != set(b_state):
+        raise AssertionError(f"state keys {sorted(set(a_state) ^ set(b_state))}")
+    for key, value in a_state.items():
+        same = (torch.equal(value, b_state[key]) if isinstance(value, torch.Tensor)
+                else value == b_state[key])
+        if not same:
+            raise AssertionError(f"the reloaded state differs at {key}")
+    # The deterministic paths answer bit for bit: the two-tier fused query
+    # and DenseIndex.search_batch at k = 1000 (the large-k kernels). The
+    # scatter pool's float atomics sum in another order on every run, so
+    # its answers are held under the tie rule.
+    a = retriever.hybrid_search_batch(queries, top_k=K, router=ctx["router"])
+    b = loaded.hybrid_search_batch(queries, top_k=K, router=ctx["router"])
+    if not (np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0])):
+        raise AssertionError("the reloaded index answers differently (twotier)")
+    a = retriever.dense_index.search_batch(queries, top_k=1000)
+    b = loaded.dense_index.search_batch(queries, top_k=1000)
+    if not (np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0])):
+        raise AssertionError("the reloaded dense index answers differently at k=1000")
+    a = retriever.hybrid_search_batch(queries, top_k=K, router=ctx["router"], sparse_mode="scatter")
+    b = loaded.hybrid_search_batch(queries, top_k=K, router=ctx["router"], sparse_mode="scatter")
+    agree = tie_aware_agreement(a[0], a[1], b[0], b[1], rtol=1e-4, atol=1e-5)
+    if agree["tie_aware_agreement"] != 1.0:
+        raise AssertionError(f"the reloaded index answers differently (scatter): "
+                             f"{agree['violations'][:2]}")
+    log(f"  reloaded index: every device array equal; {BATCH} queries answered bit for bit "
+        f"by the two-tier fused query and by DenseIndex.search_batch at k=1000, and by the "
+        f"scatter fused query under the tie rule (raw {agree['raw_idx_agreement']:.6f})")
+
+    service = QueryService(loaded, max_batch=BATCH)
+    server = serve_http(service, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        health = http_json(port, "/healthz")
+        hits = http_json(port, "/search", {"queries": queries[:8], "k": K})["results"]
+        stats = http_json(port, "/ingest", {"documents": [
+            {"id": "live-http", "text": "zzyzx quokka 17 23"}]})
+        fresh = http_json(port, "/search", {"queries": ["zzyzx quokka"], "k": 3})["results"][0]
+        answer = http_json(port, "/answer", {"question": queries[0], "k": 3})
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    launches, large = ck.cuda_cosine_topk.launches, ck.cuda_cosine_topk.large_launches
+    if thread.is_alive():
+        raise AssertionError("the HTTP server thread did not stop")
+    if health != {"status": "ok", "documents": n}:
+        raise AssertionError(f"/healthz {health}")
+    if len(hits) != 8 or any(len(row) != K for row in hits):
+        raise AssertionError("/search returned malformed hits")
+    if stats.get("total_documents") != n + 1 or fresh[0]["doc_id"] != "live-http":
+        raise AssertionError(f"/ingest then /search: {stats} {fresh[:1]}")
+    if loaded.bm25_index._delta_device is None:
+        raise AssertionError("/ingest ran a full resync")
+    if answer["answer"] != answer["passages"][0]["text"] or not 0.0 <= answer["confidence"] <= 1.0:
+        raise AssertionError(f"/answer {answer['answer'][:40]!r} {answer['confidence']}")
+    if launches < 1 or large < 1:
+        raise AssertionError(f"persist path launches {launches}, large-k {large}")
+    log(f"  HTTP on 127.0.0.1:{port}: /healthz, /search, /ingest (delta, no resync) then "
+        f"/search finds it, /answer (confidence {answer['confidence']:.4f}); kernel launches "
+        f"{launches} (large-k {large})")
+    return launches, large
 
 
 def main() -> int:
@@ -443,10 +822,24 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     with phase("kernel"):
         row = phase_kernel(gen)
+    with phase("large_k"):
+        row["large_k"] = phase_kernel_large(gen)
+    row["max_abs_err"] = max(row["max_abs_err"], row["large_k"]["max_abs_err"])
     torch.cuda.empty_cache()
     with phase("slice"):
-        row["launches"] = phase_slice(args.seed, device["name"])["launches"]
+        ctx = phase_slice(args.seed, device["name"])
+    with phase("twotier"):
+        twotier_launches = phase_twotier(ctx)
+    with phase("ingest"):
+        ingest_launches = phase_ingest(ctx)
+    with phase("persist"):
+        persist_launches, large_launches = phase_persist(ctx)
     faulthandler.cancel_dump_traceback_later()
+    row["launches"] = ctx["launches"]
+    row["launches_by_path"] = {"scatter": ctx["launches"], "twotier": twotier_launches,
+                               "ingest": ingest_launches, "persist_http": persist_launches}
+    row["large_k_launches"] = large_launches
+    row["bm25_pool_s"] = {"scatter": ctx["scatter_pool_s"], "twotier": ctx["twotier_pool_s"]}
     print(json.dumps({"kernels": [row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"], "count": torch.cuda.device_count(),

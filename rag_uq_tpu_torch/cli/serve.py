@@ -1,22 +1,44 @@
-"""Batched retrieval serving: the counterpart of ``rag_uq_tpu/cli/serve.py::QueryService``.
+"""Batched retrieval serving: the counterpart of ``rag_uq_tpu/cli/serve.py``.
 
 A micro-batching loop aggregates concurrent requests into one fused device
-query per tick. Ported here: the request queue, the batching loop
-(``_loop``, ``_dispatch_loop``, ``_run_batch``), ``search`` and ``ingest``.
-``serve_http``, ``/answer`` and the CLI ``main`` wait for a later slice.
+query per tick (``QueryService``), behind a stdlib HTTP front end
+(``serve_http``):
+
+- ``GET /healthz``: status and document count;
+- ``POST /search`` {"queries": [...], "k": N}: hits per query;
+- ``POST /ingest`` {"documents": [{"id", "text", ...}, ...]}: live ingest,
+  delta-synced when ``bm25.delta_sync_fraction > 0``;
+- ``POST /answer`` {"question": ..., "k": N, "context_passages": n}: the
+  JAX server's ``llm=None`` form, the top passage as the answer and the
+  length-ratio confidence of ``uq/conformal.py`` against the top-n context.
+
+    python3 -m rag_uq_tpu_torch.cli.serve --bm25-path data/bm25_index.json \
+        --dense-dir data/dense_index --port 8080
+
+Deviation from the JAX ``main``: ``--encoder-checkpoint``,
+``--lm-checkpoint`` and ``--router-checkpoint`` default to '' (the JAX
+defaults name ``models/*.msgpack`` files, which need ``msgpack`` and models
+the port does not have yet); naming one raises an error that points at the
+``ROADMAP.md`` item that ports it. So ``/answer`` has no generator here.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import logging
 import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, List, Optional, Sequence
+
+from rag_uq_tpu_torch.core.types import Document
 
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever
 from rag_uq_tpu_torch.router.model import RetrievalRouter
+from rag_uq_tpu_torch.uq.conformal import ConformalRAG
 
 logger = logging.getLogger(__name__)
 
@@ -39,8 +61,9 @@ class _Pending:
 class QueryService:
     """Micro-batching search engine: requests aggregate into device batches.
 
-    Serving uses the scatter-mode BM25 pool op (sparse_mode="scatter",
-    ops/bm25.topk_lowscatter); "twotier" waits for the next slice.
+    Serving defaults to the scatter-mode BM25 pool op (sparse_mode="scatter",
+    ops/bm25.topk_lowscatter), as the JAX server does; "twotier" takes
+    ``ops/bm25.topk_twotier``.
     """
 
     def __init__(
@@ -297,3 +320,116 @@ class QueryService:
             ]
             offset += len(req.queries)
             req.event.set()
+
+
+def serve_http(
+    service: QueryService, host: str = "127.0.0.1", port: int = 8080
+) -> ThreadingHTTPServer:
+    """Start the HTTP front end (returns the server; call serve_forever)."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code: int, payload: Dict) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args) -> None:  # quiet
+            pass
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"status": "ok", "documents": len(service.retriever)})
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                payload = json.loads(self.rfile.read(length) or b"{}")
+            except json.JSONDecodeError:
+                self._send(400, {"error": "invalid json"})
+                return
+            if self.path == "/search":
+                queries = payload.get("queries") or [payload.get("query", "")]
+                if isinstance(queries, str):  # one query, not its characters
+                    queries = [queries]
+                k = int(payload.get("k", 10))
+                self._send(200, {"results": service.search(list(queries), k)})
+            elif self.path == "/ingest":
+                rows = payload.get("documents") or []
+                try:
+                    docs = [Document.from_dict(row) for row in rows]
+                except (KeyError, TypeError):
+                    self._send(400, {"error": "documents need id and text"})
+                    return
+                self._send(200, service.ingest(docs))
+            elif self.path == "/answer":
+                question = payload.get("question", "")
+                k = int(payload.get("k", 10))
+                # Top-1 context by default; context_passages widens it.
+                n_ctx = int(payload.get("context_passages", 1))
+                hits = service.search([question], k)[0]
+                context = " ".join(h["text"] for h in hits[:n_ctx])[:2000]
+                answer = hits[0]["text"] if hits else ""
+                confidence = 1.0 - ConformalRAG.estimate_nonconformity(answer, context)
+                self._send(200, {"answer": answer, "confidence": confidence, "passages": hits})
+            else:
+                self._send(404, {"error": "not found"})
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    logger.info("Serving on http://%s:%d", host, server.server_address[1])
+    return server
+
+
+# The ROADMAP.md items that port what each checkpoint flag would load.
+_UNPORTED_CHECKPOINTS = {
+    "encoder_checkpoint": "A.4 (embed/encoder.py::TransformerEmbedder)",
+    "lm_checkpoint": "A.6 (llm/tiny_lm.py, UQ and generation)",
+    "router_checkpoint": "A.7 (router/train.py checkpoints)",
+}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    parser = argparse.ArgumentParser(description="Serve the hybrid index")
+    parser.add_argument("--bm25-path", default="./data/bm25_index.json")
+    parser.add_argument("--dense-dir", default="./data/dense_index")
+    parser.add_argument("--router-checkpoint", default="",
+                        help="not ported yet (ROADMAP.md A.7); leave empty")
+    parser.add_argument("--encoder-checkpoint", default="",
+                        help="not ported yet (ROADMAP.md A.4); leave empty to "
+                        "use the configured hash embedder")
+    parser.add_argument("--lm-checkpoint", default="",
+                        help="not ported yet (ROADMAP.md A.6); leave empty to "
+                        "return the top passage from /answer")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8080)
+    parser.add_argument(
+        "--sparse-mode", default="scatter", choices=["scatter", "twotier"],
+        help="BM25 pool op: 'scatter' (default) or 'twotier'",
+    )
+    parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    args = parser.parse_args(argv)
+    for name, item in _UNPORTED_CHECKPOINTS.items():
+        if getattr(args, name):
+            parser.error(f"--{name.replace('_', '-')} is not ported yet: ROADMAP.md item {item}")
+
+    logging.basicConfig(level=logging.INFO)
+    retriever = HybridRetriever(
+        bm25_persist_path=args.bm25_path,
+        dense_persist_directory=args.dense_dir,
+        device=args.device,
+    )
+    service = QueryService(retriever, sparse_mode=args.sparse_mode)
+    server = serve_http(service, host=args.host, port=args.port)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        service.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Exact cosine top-k: the CUDA kernel ``csrc/cosine_topk.cu`` and its plain twin.
+"""Exact cosine top-k: the CUDA kernels ``csrc/cosine_topk.cu`` and
+``csrc/cosine_topk_large.cu``, and their plain twin.
 
 Counterpart of ``rag_uq_tpu/ops/pallas_topk.py::pallas_cosine_topk``, with the
 same contract: for every query the k corpus rows with the largest
@@ -6,12 +7,16 @@ same contract: for every query the k corpus rows with the largest
 cast to it; f32 accumulation), rows at or past ``size`` masked, ties to the
 lowest row index, ``-1`` where the value is ``-inf`` (fewer than k live
 rows, or the empty index). The Pallas constraints ``cap % block == 0`` and
-``1 <= fan <= k`` do not apply here; k is at most ``MAX_K``.
+``1 <= fan <= k`` do not apply here. k runs up to ``LARGE_MAX_K`` (8192, the
+``block`` limit of the JAX ``cosine_topk``), capped by the capacity.
 
 ``cuda_cosine_topk`` takes the plain version only for tensors on the CPU. For
-a CUDA tensor it launches the kernel, in the configuration ``kernel_config``
-picks from the dtype and k, or raises. The kernel is built with ``nvcc`` at
-its first launch (``utils/build.py``) and loaded with ``ctypes``.
+a CUDA tensor it launches a kernel or raises: up to ``MAX_K`` the heap kernel,
+in the configuration ``kernel_config`` picks from the dtype and k; above it
+the large-k kernels (a score pass into a ``[B_chunk, live]`` buffer, then a
+per-query radix select and sort), with the queries chunked so the buffer
+stays within ``SCORE_BUDGET`` bytes. Each kernel is built with ``nvcc`` at its
+first launch (``utils/build.py``) and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import ctypes
 import os
 import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
@@ -30,11 +36,14 @@ from rag_uq_tpu_torch.ops.topk import cosine_topk_single
 from rag_uq_tpu_torch.utils.build import Built, build_shared_library
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "cosine_topk.cu"
+SOURCE_LARGE = SOURCE.with_name("cosine_topk_large.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-MAX_K = 256
+MAX_K = 256  # the heap kernel's limit
+LARGE_MAX_K = 8192  # the large-k kernels' limit
+SCORE_BUDGET = 2 << 30  # bytes of the large-k path's score buffer
 SMEM_LIMIT = 232_448  # dynamic shared memory a block can use on an H100
 _ROW_TILE = 128  # corpus rows per score tile in the kernel (BN)
 _BOX_BYTES = 128  # width of a TMA box: one 128-byte swizzle row
@@ -70,7 +79,9 @@ def kernel_config(dtype: torch.dtype, k: int) -> KernelConfig:
     Every box is 128 bytes wide whatever the dtype (64 bf16/fp16 or 32 f32
     columns), so only k and the query tile set the shared memory. BQ = 128
     where three stages fit beside the ``[BQ, k]`` lists (k <= 121), else 64;
-    then as many stages as fit, at most 6.
+    then as many stages as fit, at most 6. It refuses k > ``MAX_K``: the heap
+    kernel's lists no longer fit, and ``cuda_cosine_topk`` takes such k to the
+    large-k kernels, which need no configuration.
     """
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes a bf16, fp16 or f32 corpus, got {dtype}")
@@ -87,6 +98,9 @@ def kernel_config(dtype: torch.dtype, k: int) -> KernelConfig:
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _built: Optional[Built] = None
+_large_lock = threading.Lock()
+_large_lib: Optional[ctypes.CDLL] = None
+_large_built: Optional[Built] = None
 
 
 def cosine_topk_plain(
@@ -131,6 +145,32 @@ def build() -> Built:
         return _built
 
 
+def build_large() -> Built:
+    """Compile the large-k kernels (once per process; cached on disk)."""
+    global _large_lib, _large_built
+    with _large_lock:
+        if _large_lib is None:
+            built = build_shared_library(
+                "rag_cosine_topk_large", [SOURCE_LARGE], [nvcc_path(), *NVCC_FLAGS],
+                timeout_s=600,
+            )
+            lib = ctypes.CDLL(str(built.path))
+            c = ctypes
+            lib.rag_cosine_topk_large.argtypes = [
+                c.c_void_p, c.c_void_p, *[c.c_int] * 5, *[c.c_void_p] * 4,
+            ]
+            lib.rag_cosine_topk_large.restype = c.c_int
+            _large_lib, _large_built = lib, built
+        return _large_built
+
+
+def build_all() -> Tuple[Built, Built]:
+    """Both libraries, one ``nvcc`` each, started together."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        heap, large = pool.submit(build), pool.submit(build_large)
+        return heap.result(), large.result()
+
+
 def chunking(n_queries: int, live: int, query_tile: int, n_sm: int) -> Tuple[int, int]:
     """(n_chunks, chunk_rows): about one block per SM, chunks in row tiles."""
     if live == 0:
@@ -147,10 +187,9 @@ def cuda_cosine_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k cosine (vals [B, k] f32, rows [B, k] int32; -1 = dead)."""
     cap = emb.shape[0]
-    if not 1 <= k <= min(MAX_K, max(cap, 1)):
+    if not 1 <= k <= min(LARGE_MAX_K, max(cap, 1)):
         raise ValueError(
-            f"k={k} must be in [1, min({MAX_K}, capacity={cap})]; "
-            f"the kernel's limit is k <= {MAX_K}"
+            f"k={k} must be in [1, min({LARGE_MAX_K}, capacity={cap})]"
         )
     if emb.device.type == "cpu":
         return cosine_topk_plain(emb, queries, size, k)
@@ -159,7 +198,8 @@ def cuda_cosine_topk(
             f"cosine top-k needs both tensors on one CUDA device or the CPU; "
             f"got {emb.device} and {queries.device}"
         )
-    cfg = kernel_config(emb.dtype, k)
+    if emb.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes a bf16, fp16 or f32 corpus, got {emb.dtype}")
     if emb.dim() != 2 or queries.dim() != 2 or queries.shape[1] != emb.shape[1]:
         raise ValueError(f"shapes {tuple(emb.shape)} and {tuple(queries.shape)}")
     n_q, dim = queries.shape
@@ -173,25 +213,60 @@ def cuda_cosine_topk(
     if n_q == 0:
         return vals, idx
     q = queries.to(emb.dtype).contiguous()  # as pallas_topk.py casts them
-    n_sm = torch.cuda.get_device_properties(emb.device).multi_processor_count
-    n_chunks, chunk_rows = chunking(n_q, live, cfg.query_tile, n_sm)
-    part_v = torch.empty((n_q, n_chunks, k), dtype=torch.float32, device=emb.device)
-    part_i = torch.empty((n_q, n_chunks, k), dtype=torch.int32, device=emb.device)
-    build()
-    with torch.cuda.device(emb.device):
-        rc = _lib.rag_cosine_topk(
-            emb.data_ptr(), q.data_ptr(), n_q, dim, live, k,
-            _DTYPE_CODES[emb.dtype], cfg.query_tile, cfg.stages, n_chunks,
-            chunk_rows, part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), torch.cuda.current_stream(emb.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"cosine top-k kernel launch failed: CUDA error {rc}")
+    if q.data_ptr() % 16 != 0:
+        q = q.clone()
+    stream = torch.cuda.current_stream(emb.device).cuda_stream
+    if k > MAX_K:
+        _large_topk(emb, q, live, k, vals, idx, stream)
+        cuda_cosine_topk.large_launches += 1
+    else:
+        cfg = kernel_config(emb.dtype, k)
+        n_sm = torch.cuda.get_device_properties(emb.device).multi_processor_count
+        n_chunks, chunk_rows = chunking(n_q, live, cfg.query_tile, n_sm)
+        part_v = torch.empty((n_q, n_chunks, k), dtype=torch.float32, device=emb.device)
+        part_i = torch.empty((n_q, n_chunks, k), dtype=torch.int32, device=emb.device)
+        build()
+        with torch.cuda.device(emb.device):
+            rc = _lib.rag_cosine_topk(
+                emb.data_ptr(), q.data_ptr(), n_q, dim, live, k,
+                _DTYPE_CODES[emb.dtype], cfg.query_tile, cfg.stages, n_chunks,
+                chunk_rows, part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"cosine top-k kernel launch failed: CUDA error {rc}")
     cuda_cosine_topk.launches += 1
     return vals, idx
 
 
-cuda_cosine_topk.launches = 0
+def large_chunk(n_queries: int, live: int) -> int:
+    """Queries a chunk of the large-k path, so [chunk, live] f32 fits SCORE_BUDGET."""
+    return max(1, min(n_queries, SCORE_BUDGET // (4 * max(live, 1))))
+
+
+def _large_topk(
+    emb: torch.Tensor, q: torch.Tensor, live: int, k: int,
+    vals: torch.Tensor, idx: torch.Tensor, stream: int,
+) -> None:
+    """The large-k kernels over query chunks, into vals/idx."""
+    n_q, dim = q.shape
+    chunk = large_chunk(n_q, live)
+    scores = torch.empty((chunk, max(live, 1)), dtype=torch.float32, device=emb.device)
+    build_large()
+    with torch.cuda.device(emb.device):
+        for lo in range(0, n_q, chunk):
+            hi = min(lo + chunk, n_q)
+            rc = _large_lib.rag_cosine_topk_large(
+                emb.data_ptr(), q[lo:hi].data_ptr(), hi - lo, dim, live, k,
+                _DTYPE_CODES[emb.dtype], scores.data_ptr(), vals[lo:hi].data_ptr(),
+                idx[lo:hi].data_ptr(), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"large-k cosine top-k launch failed: CUDA error {rc}")
+
+
+cuda_cosine_topk.launches = 0  # every launch, either path
+cuda_cosine_topk.large_launches = 0  # launches of the large-k path
 
 
 def merge_pass(

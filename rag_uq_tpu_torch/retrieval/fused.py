@@ -3,8 +3,10 @@
 One function from query vectors and term ids to the final top-k:
 
     dense top-pool      the cosine top-k kernel (CUDA) or its plain twin
-    sparse top-pool     ``ops/bm25.py::topk_lowscatter`` (scatter mode), or
-                        the exhaustive ``score_all`` oracle (exact_bm25)
+    sparse top-pool     ``ops/bm25.py::topk_twotier`` (the default),
+                        ``topk_lowscatter`` (scatter mode), or the exhaustive
+                        ``score_all`` oracle (exact_bm25); a live-ingest
+                        delta is scored exhaustively and merged in
     union merge         equality-matrix join; missing scores are 0.0
     fusion              the learned router's gate, or the reference's fixed
                         mean-of-max-normalized fusion
@@ -13,9 +15,8 @@ One function from query vectors and term ids to the final top-k:
 The dense pool on a CUDA tensor always goes through the kernel
 (``ops/cosine_topk.py``), whatever exact ``dense_mode`` is named; on a CPU
 tensor "stream" is the block-streamed twin and every other mode the single
-product. ``sparse_mode="twotier"`` and the live-ingest delta merge wait for
-the next slice. Every sort that decides an order is stable, so ties resolve
-as ``lax.top_k`` and the numpy eval protocol resolve them.
+product. Every sort that decides an order is stable, so ties resolve as
+``lax.top_k`` and the numpy eval protocol resolve them.
 """
 
 from __future__ import annotations
@@ -31,10 +32,6 @@ from rag_uq_tpu_torch.ops.topk import cosine_topk, cosine_topk_single, stable_to
 from rag_uq_tpu_torch.router.model import RouterModule, fuse_hybrid
 
 _INT_MAX = torch.iinfo(torch.int32).max
-_TWOTIER_MSG = (
-    "sparse_mode='twotier' (ops/bm25.py::topk_twotier) is not ported yet; "
-    "it waits for the next slice. Use sparse_mode='scatter'."
-)
 
 
 def _argsort(x: torch.Tensor, descending: bool = False) -> torch.Tensor:
@@ -179,14 +176,20 @@ def make_fused_hybrid_query(
     exact_bm25: bool = False,
     dense_mode: str = "single",  # "single" | "single_approx" | "stream" | "pallas"
     max_df: Optional[int] = None,  # REQUIRED with exact_bm25 (index max df)
+    nonneg: bool = True,  # pass the index's dev["nonneg"] flag
+    delta_cap: int = 0,  # live-ingest delta doc capacity (0 = no delta)
+    delta_max_df: int = 0,
     sparse_mode: str = "twotier",  # "twotier" | "scatter"
+    lsel: int = 4096,  # twotier low-tier truncation under approx_topk (0 = off)
 ) -> Callable[[Dict[str, Any], torch.Tensor, Dict[str, torch.Tensor]], Tuple[torch.Tensor, torch.Tensor]]:
     """Build fn(index_state, q_vecs, qterms) -> (scores [B, k], positions [B, k]).
 
     ``index_state`` is the dict from ``build_index_state``, ``qterms`` the
     dict from ``encode_for_fused``; the router, if any, is ``router_module``.
     ``approx_topk`` has no PyTorch counterpart (``lax.approx_max_k``): every
-    top-k here is exact.
+    top-k here is exact; it still turns on the twotier ``lsel`` truncation,
+    as in the JAX package. A state with a live delta (``build_index_state``
+    with ``allow_delta``) needs the matching ``delta_cap``/``delta_max_df``.
     """
     if exact_bm25 and max_df is None:
         raise ValueError(
@@ -195,8 +198,6 @@ def make_fused_hybrid_query(
         )
     if sparse_mode not in ("twotier", "scatter"):
         raise ValueError(f"unknown sparse_mode {sparse_mode!r}")
-    if sparse_mode == "twotier" and not exact_bm25:
-        raise NotImplementedError(_TWOTIER_MSG)
     if dense_mode not in ("single", "single_approx", "stream", "pallas"):
         raise ValueError(f"unknown dense_mode {dense_mode!r}")
 
@@ -212,16 +213,38 @@ def make_fused_hybrid_query(
             )
             bvals, bidx = bm25_ops.topk_from_scores(all_scores, pool)
         else:
-            bvals, bidx = bm25_ops.topk_lowscatter(
-                state["low_ranges"], state["post_packed"],
-                state["term_row"], state["impact"],
-                qterms["qtids_base"], pool, beam=beam, approx=approx_topk,
-                impact_scale=state["impact_scale"],
-                active_rows=qterms.get("active_rows"),
-                rows_compact=qterms.get("rows_compact"),
-                low_blocks=state.get("low_blocks"),
-                low_row=state.get("low_row"),
-            )
+            if sparse_mode == "scatter":
+                bvals, bidx = bm25_ops.topk_lowscatter(
+                    state["low_ranges"], state["post_packed"],
+                    state["term_row"], state["impact"],
+                    qterms["qtids_base"], pool, beam=beam, approx=approx_topk,
+                    impact_scale=state["impact_scale"],
+                    active_rows=qterms.get("active_rows"),
+                    rows_compact=qterms.get("rows_compact"),
+                    low_blocks=state.get("low_blocks"),
+                    low_row=state.get("low_row"),
+                )
+            else:
+                bvals, bidx = bm25_ops.topk_twotier(
+                    state["low_ranges"], state["post_packed"],
+                    state["term_row"], state["impact"],
+                    qterms["qtids_base"], pool, beam=beam, approx=approx_topk,
+                    lsel=lsel if approx_topk else 0,
+                    impact_scale=state["impact_scale"], nonneg=nonneg,
+                )
+            if "delta_indptr" in state:
+                # Live-ingest delta: score the recently added docs
+                # exhaustively (few) and merge them into the BM25 pool.
+                dscores = bm25_ops.score_all(
+                    state["delta_indptr"], state["delta_post_doc"],
+                    state["delta_post_w"], qterms["qtids"], delta_cap, delta_max_df,
+                )
+                dv, di = bm25_ops.topk_from_scores(dscores, min(pool, delta_cap))
+                di = torch.where(di >= 0, di + state["delta_base_docs"], -1)
+                cat_v = torch.cat([bvals, dv], dim=-1)
+                cat_i = torch.cat([bidx, di], dim=-1)
+                bvals, sel = stable_topk(cat_v, pool)
+                bidx = torch.gather(cat_i, -1, sel)
             dead = bvals <= 0.0
             bvals = torch.where(dead, 0.0, bvals)
             bidx = torch.where(dead, -1, bidx)
@@ -279,16 +302,26 @@ def encode_for_fused(
 
 
 def build_index_state(dense_index, bm25_index, allow_delta: bool = False) -> Dict[str, Any]:
-    """Collect the two indices' device tensors into one state dict."""
+    """Collect the two indices' device tensors into one state dict.
+
+    With ``allow_delta`` (and ``delta_sync_fraction > 0``) a live delta is
+    kept or built instead of forcing a full resync; its arrays join the
+    state, and the fused query needs the matching ``delta_cap``/``delta_max_df``.
+    """
     if allow_delta:
-        raise NotImplementedError(
-            "the live-ingest delta merge is not ported yet; it waits for the "
-            "next slice"
-        )
-    dev = bm25_index._require_full_sync()
+        dev, delta = bm25_index._sync_incremental()
+    else:
+        dev, delta = bm25_index._require_full_sync(), None
     state = {"emb": dense_index._emb, "size": len(dense_index)}
     for name in ("indptr", "post_doc", "post_w", "low_ranges", "post_packed",
                  "term_row", "impact", "impact_scale", "low_blocks", "low_row"):
         if name in dev:
             state[name] = dev[name]
+    if delta is not None:
+        state.update(
+            delta_indptr=delta["indptr"],
+            delta_post_doc=delta["post_doc"],
+            delta_post_w=delta["post_w"],
+            delta_base_docs=delta["base_docs"],
+        )
     return state

@@ -6,15 +6,17 @@ the EMA score statistics (or the batch's, until they are initialized), the
 ``num_layers - 1`` hidden ReLU layers (dropout is the identity in eval), a
 final ``Linear(1)`` and a sigmoid. ``fuse_hybrid`` turns gate weights into
 rankable scores. The ``binary`` policy's mean runs over all columns, dead
-ones included (``router/model.py:79``), as the reference does. Training
-waits for a later slice.
+ones included (``router/model.py:79``), as the reference does.
+``RetrievalRouter`` adds ``hybrid_rerank`` and ``get_routing_decision``.
+Training waits for a later slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -165,3 +167,27 @@ class RetrievalRouter:
         b = torch.as_tensor(bm25_scores, dtype=torch.float32, device=self.device)
         d = torch.as_tensor(dense_scores, dtype=torch.float32, device=self.device)
         return self.module(b, d)
+
+    def hybrid_rerank(
+        self, bm25_scores, dense_scores, top_k: int = 10
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gate, fuse (``fuse_hybrid``), then the top-k: (scores [B, k],
+        columns [B, k] int32), ties to the lowest column."""
+        b = torch.as_tensor(bm25_scores, dtype=torch.float32, device=self.device)
+        d = torch.as_tensor(dense_scores, dtype=torch.float32, device=self.device)
+        hybrid = fuse_hybrid(self.config, self.forward(b, d), b, d)
+        vals, idx = stable_topk(hybrid, min(top_k, hybrid.shape[-1]))
+        return vals, idx.to(torch.int32)
+
+    def get_routing_decision(
+        self, bm25_scores, dense_scores, threshold: float = 0.5
+    ) -> Dict[str, Any]:
+        """Interpretable routing statistics of the gate weights."""
+        weights = self.forward(bm25_scores, dense_scores).cpu().numpy()
+        return {
+            "avg_dense_weight": float(weights.mean()),
+            "weight_std": float(weights.std(ddof=1)) if weights.size > 1 else 0.0,
+            "dense_preferred_ratio": float((weights > threshold).mean()),
+            "bm25_preferred_ratio": float((weights <= threshold).mean()),
+            "routing_weights": weights,
+        }

@@ -3,7 +3,10 @@
 Both packages score the same synced arrays: the JAX index's device layout,
 carried across with ``convert.bm25_device_state``. Tolerances: scores
 within rtol 1e-6 / atol 1e-6 of the JAX ops (same f32 sums, possibly in
-another order) and rtol 1e-5 of the float64 oracle; indices equal.
+another order) and rtol 1e-5 of the float64 oracle; indices equal. The
+two-tier op: scores within rtol 1e-5 (its high tier is a product whose f32
+sums may run in another order), indices equal or, where scores tie within
+1e-6, tie-aware equal.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ from rag_uq_tpu.index.sparse import BM25Index as JaxBM25Index
 from rag_uq_tpu.ops import bm25 as jax_bm25
 from rag_uq_tpu.retrieval.fused import encode_for_fused as jax_encode
 from rag_uq_tpu.text.tokenize import tokenize
+from rag_uq_tpu_torch.cli.bench_sharded import tie_aware_agreement
 from rag_uq_tpu_torch.convert import bm25_device_state
 from rag_uq_tpu_torch.ops import bm25 as torch_bm25
 
@@ -35,6 +39,9 @@ VARIANTS = {
     "f32_negative": ("negative", dict(impact_dtype="float32", dense_tier_threshold=2)),
     "bf16_negative_slices": ("negative", dict(dense_tier_threshold=2,
                                               low_block_budget_bytes=0)),
+    # A row cap raises the threshold (and the low-tier beam) to fit.
+    "f32_row_cap": ("synthetic", dict(impact_dtype="float32", dense_tier_threshold=2,
+                                      max_dense_tier_rows=4)),
 }
 
 
@@ -155,6 +162,51 @@ def test_lowscatter_exact_against_score_all_f32():
         state["low_ranges"], state["post_packed"], state["term_row"], state["impact"],
         qtids, 5, beam=state["beam"], impact_scale=state["impact_scale"],
         low_blocks=state["low_blocks"], low_row=state["low_row"],
+    )
+    live = ev > 0
+    np.testing.assert_allclose(fv[live].numpy(), ev[live].numpy(), rtol=1e-5)
+    np.testing.assert_array_equal(fi[live].numpy(), ei[live].numpy())
+
+
+@pytest.mark.parametrize("lsel", [0, 16])
+def test_topk_twotier_matches(synced, lsel):
+    """Every variant (bf16, int8, f32, a row cap, the nonneg=False scatter
+    fallback), repeated query terms ("w5 w5 w5"), with and without lsel."""
+    _, _, _, dev, state, qterms = synced
+    k = 7
+    jv, ji = jax_bm25.topk_twotier(
+        dev["low_ranges"], dev["post_packed"], dev["term_row"], dev["impact"],
+        jnp.asarray(qterms["qtids_base"].numpy()), k, beam=dev["beam"], approx=False,
+        lsel=lsel, impact_scale=dev["impact_scale"], nonneg=dev["nonneg"],
+    )
+    tv, ti = torch_bm25.topk_twotier(
+        state["low_ranges"], state["post_packed"], state["term_row"], state["impact"],
+        qterms["qtids_base"], k, beam=state["beam"], approx=False, lsel=lsel,
+        impact_scale=state["impact_scale"], nonneg=state["nonneg"],
+    )
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    assert tv.dtype == torch.float32 and ti.dtype == torch.int32
+    np.testing.assert_allclose(tv.numpy(), jv, rtol=1e-5, atol=1e-6)
+    agree = tie_aware_agreement(tv.numpy(), ti.numpy(), jv, ji, rtol=0.0, atol=1e-6)
+    assert agree["tie_aware_agreement"] == 1.0, agree["violations"][:3]
+
+
+def test_twotier_row_cap_raises_threshold_stays_exact():
+    """The capped tier reroutes terms to a wider low-tier beam and the op
+    still equals the exhaustive oracle (f32 impacts)."""
+    corpus, queries = _corpus("synthetic")
+    idx = JaxBM25Index(config=BM25Config(impact_dtype="float32", dense_tier_threshold=2,
+                                         max_dense_tier_rows=4))
+    idx.add_documents([Document(str(i), t) for i, t in enumerate(corpus)])
+    state = bm25_device_state(_to_numpy(idx._sync()), torch.float32, device="cpu")
+    assert state["impact"].shape[0] <= 8 and state["beam"] > 8
+    qtids = torch.from_numpy(idx.encode_queries(queries))
+    ev, ei = torch_bm25.topk_from_scores(
+        torch_bm25.score_all(state["indptr"], state["post_doc"], state["post_w"],
+                             qtids, state["n_docs_cap"], state["max_df"]), 5)
+    fv, fi = torch_bm25.topk_twotier(
+        state["low_ranges"], state["post_packed"], state["term_row"], state["impact"],
+        qtids, 5, beam=state["beam"], impact_scale=state["impact_scale"],
     )
     live = ev > 0
     np.testing.assert_allclose(fv[live].numpy(), ev[live].numpy(), rtol=1e-5)

@@ -149,3 +149,32 @@ def test_merge_pass_refuses_cpu_tensors_before_building(monkeypatch):
     part_i = torch.zeros((2, 3, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         ck.merge_pass(part_v, part_i, 4)
+
+
+def test_large_k_constants_and_query_chunks():
+    """The large-k kernels' limit matches their source; the query chunks
+    keep the [chunk, live] f32 score buffer within SCORE_BUDGET and cover
+    every query."""
+    src = ck.SOURCE_LARGE.read_text()
+    assert int(re.search(r"constexpr int LARGE_MAX_K = (\d+);", src).group(1)) == ck.LARGE_MAX_K
+    assert ck.LARGE_MAX_K == 8192 > ck.MAX_K
+    for n_q, live in [(2048, 100_000), (2048, 0), (1, 10**6), (5000, 2**20), (3, 7)]:
+        chunk = ck.large_chunk(n_q, live)
+        assert 1 <= chunk <= n_q
+        assert chunk == 1 or chunk * 4 * live <= ck.SCORE_BUDGET
+    assert ck.large_chunk(2048, 100_000) == 2048  # the main shape is one chunk
+
+
+@pytest.mark.parametrize("k", [ck.MAX_K + 1, 1000])
+def test_large_k_cpu_route_matches_jax(rng, k):
+    """Above MAX_K the CPU route is the plain twin, held to the JAX
+    cosine_topk_single (bf16 corpus: values within 1e-6, indices equal)."""
+    emb, q = _mk(rng, 1024, 24, 3)
+    e = torch.from_numpy(emb).bfloat16()
+    jv, ji = jax_topk.cosine_topk_single(
+        jnp.asarray(e.float().numpy(), dtype=jnp.bfloat16), jnp.asarray(q), jnp.int32(900), k
+    )
+    tv, ti = ck.cuda_cosine_topk(e, torch.from_numpy(q), 900, k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    live = np.isfinite(np.asarray(jv))
+    np.testing.assert_allclose(tv.numpy()[live], np.asarray(jv)[live], atol=1e-6, rtol=0)

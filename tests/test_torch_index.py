@@ -82,8 +82,21 @@ def test_sync_is_lazy_and_bumps_generation():
 
 
 def test_delta_sync_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        BM25Index(config=BM25Config(delta_sync_fraction=0.1), device="cpu")
+    """Once a refusal, now a parity check: with delta_sync_fraction > 0 a
+    search after a small ingest serves from the base plus a delta, as the
+    JAX index does, with the same results (scores within rtol 1e-5)."""
+    texts = make_synthetic_corpus(np.random.default_rng(2), 44)
+    cfg = dict(delta_sync_fraction=0.1, dense_tier_threshold=8)
+    ours = BM25Index(config=BM25Config(**cfg), device="cpu")
+    ref = JaxBM25Index(config=JaxBM25Config(**cfg))
+    for lo, hi in ((0, 40), (40, 44)):
+        ours.add_documents([Document(str(i), texts[i]) for i in range(lo, hi)])
+        ref.add_documents([JaxDocument(str(i), texts[i]) for i in range(lo, hi)])
+        tv, ti = ours.search_batch(QUERIES, top_k=5, exact=False)
+        jv, ji = ref.search_batch(QUERIES, top_k=5, exact=False)
+        np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(ti, ji)
+    assert ours._delta_device is not None and ours._base["docs"] == 40
 
 
 def test_dense_growth_and_padding_match_jax():

@@ -147,9 +147,13 @@ def test_fused_query_with_exact_bm25_matches_jax(pair):
 
 
 def test_twotier_waits_for_next_slice(pair):
-    _, _, ours = pair
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ours.hybrid_search_batch(["w1"])  # the JAX default sparse_mode
+    """Once a refusal, now a parity check: hybrid_search_batch with no
+    sparse_mode (the JAX default, "twotier") matches the JAX call."""
+    docs, ref, ours = pair
+    queries = _queries(docs)
+    jv, jp = ref.hybrid_search_batch(queries, top_k=10)
+    tv, tp = ours.hybrid_search_batch(queries, top_k=10)
+    _assert_agree(tv, tp, np.asarray(jv), np.asarray(jp))
 
 
 def test_query_service_matches_jax(pair):

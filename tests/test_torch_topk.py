@@ -165,15 +165,23 @@ def test_cpu_wrapper_takes_plain_version_and_never_builds(rng, monkeypatch):
 
 
 def test_wrapper_rejects_bad_k(rng):
+    """k above the heap kernel's MAX_K now answers (the large-k route), as
+    the JAX cosine_topk does, with the same rows (f32 corpus: values within
+    1e-6, indices equal); k = 0 and k above the capacity still raise."""
     emb, q = _mk(rng, 512, 16, 2)
     e, qq = torch.from_numpy(emb), torch.from_numpy(q)
-    with pytest.raises(ValueError, match=f"k <= {ck.MAX_K}"):
-        ck.cuda_cosine_topk(e, qq, 10, ck.MAX_K + 1)
+    with pytest.raises(ValueError, match="capacity=512"):
+        ck.cuda_cosine_topk(e, qq, 10, 513)
     with pytest.raises(ValueError):
         ck.cuda_cosine_topk(e, qq, 10, 0)
-    vals, idx = ck.cuda_cosine_topk(e, qq, 300, 256)  # the new limit is accepted
-    assert vals.shape == idx.shape == (2, 256)
-    assert (idx[:, :300] >= 0).all()
+    for size, k in ((300, ck.MAX_K), (300, ck.MAX_K + 1), (500, 512)):
+        vals, idx = ck.cuda_cosine_topk(e, qq, size, k)
+        jv, ji = jax_topk.cosine_topk(jnp.asarray(emb), jnp.asarray(q), jnp.int32(size), k, 512)
+        assert vals.shape == idx.shape == (2, k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+        live = np.isfinite(np.asarray(jv))
+        np.testing.assert_allclose(vals.numpy()[live], np.asarray(jv)[live], atol=1e-6)
+        assert (idx[:, :size] >= 0).all() and (idx[:, size:] == -1).all()
 
 
 @pytest.mark.parametrize("k", [1, 50, 121, 128, 256])
