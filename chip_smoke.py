@@ -25,8 +25,9 @@ Phases, each printing one line "phase <name> ok <seconds>":
            at the main shape, a ragged query count, fewer live rows than k,
            ties across row-tile, compaction-step and query-chunk boundaries,
            fp16 and f32 corpora, and D = 100 through DenseIndex (stored
-           padded to 104); each main-shape k timed beside its bound and
-           torch.matmul + torch.topk;
+           padded to 104); each case timed with CUDA events beside
+           torch.matmul + torch.topk, and each main-shape k beside its bound
+           and the plain twin;
   slice    a 100k-passage index at bench.py's shape behind a QueryService
            (max_batch 2048, scatter-mode BM25, a pool7/maxnorm/binary router
            with seeded random weights) answering three 2048-query requests
@@ -196,7 +197,19 @@ def phase_kernel(gen: torch.Generator) -> dict:
     def case(what, e, q, size, k, atol=KERNEL_ATOL):
         kv, ki = ck.cuda_cosine_topk(e, q, size, k)
         pv, pi = ck.cosine_topk_plain(e, q, size, k)
-        return check_topk(kv, ki, pv, pi, what, atol), ki
+        err = check_topk(kv, ki, pv, pi, what, atol)
+        timing(what, lambda: ck.cuda_cosine_topk(e, q, size, k), e, q, size, k)
+        return err, ki
+
+    def timing(what, kernel, e, q, size, k):
+        """The kernel beside torch.matmul + torch.topk (where k fits the
+        live rows), CUDA events; a yardstick only."""
+        ms = cuda_ms(kernel, reps=3)
+        lib = "n/a (k > live rows)"
+        if k <= size:
+            live_e, q_e = e[:size], q.to(e.dtype)
+            lib = f"{cuda_ms(lambda: torch.topk(torch.matmul(q_e, live_e.T), k), reps=3):.4f} ms"
+        log(f"    timed: kernel {ms:.4f} ms, torch.matmul + torch.topk {lib}")
 
     err = 0.0
     # The edge cases of tests/test_pallas_topk.py (feature widths are
@@ -307,7 +320,19 @@ def phase_kernel_large(gen: torch.Generator) -> dict:
     def case(what, e, q, size, k, atol=KERNEL_ATOL):
         kv, ki = ck.cuda_cosine_topk(e, q, size, k)
         pv, pi = ck.cosine_topk_plain(e, q, size, k)
-        return check_topk(kv, ki, pv, pi, what, atol), ki
+        err = check_topk(kv, ki, pv, pi, what, atol)
+        timing(what, lambda: ck.cuda_cosine_topk(e, q, size, k), e, q, size, k)
+        return err, ki
+
+    def timing(what, kernel, e, q, size, k):
+        """The kernel beside torch.matmul + torch.topk (where k fits the
+        live rows), CUDA events; a yardstick only."""
+        ms = cuda_ms(kernel, reps=3)
+        lib = "n/a (k > live rows)"
+        if k <= size:
+            live_e, q_e = e[:size], q.to(e.dtype)
+            lib = f"{cuda_ms(lambda: torch.topk(torch.matmul(q_e, live_e.T), k), reps=3):.4f} ms"
+        log(f"    timed: kernel {ms:.4f} ms, torch.matmul + torch.topk {lib}")
 
     emb = unit(torch.randn((CAP, DIM), generator=gen, device=dev)).bfloat16()
     q = unit(torch.randn((BATCH, DIM), generator=gen, device=dev))
@@ -367,8 +392,11 @@ def phase_kernel_large(gen: torch.Generator) -> dict:
     for k in (POOL, 1000):
         kv, ki = index.search_batch([], top_k=k, q_vecs=q100)
         pv, pi = ck.cosine_topk_plain(index._emb, index._padded(q100), N_DOCS, k)
-        err = max(err, check_topk(torch.from_numpy(kv), torch.from_numpy(ki), pv, pi,
-                                  f"D=100 via DenseIndex (stored 104), k={k}"))
+        what = f"D=100 via DenseIndex (stored 104), k={k}"
+        err = max(err, check_topk(torch.from_numpy(kv), torch.from_numpy(ki), pv, pi, what))
+        padded_q = index._padded(q100)
+        timing(what, lambda: ck.cuda_cosine_topk(index._emb, padded_q, N_DOCS, k), index._emb,
+               padded_q, N_DOCS, k)
     del index
     return {"max_abs_err": err, "f32_max_abs_err": f32_err, "cases": rows}
 
