@@ -13,10 +13,11 @@ rows, or the empty index). The Pallas constraints ``cap % block == 0`` and
 ``cuda_cosine_topk`` takes the plain version only for tensors on the CPU. For
 a CUDA tensor it launches a kernel or raises: up to ``MAX_K`` the heap kernel,
 in the configuration ``kernel_config`` picks from the dtype and k; above it
-the large-k kernels (a score pass into a ``[B_chunk, live]`` buffer, then a
-per-query radix select and sort), with the queries chunked so the buffer
-stays within ``SCORE_BUDGET`` bytes. Each kernel is built with ``nvcc`` at its
-first launch (``utils/build.py``) and loaded with ``ctypes``.
+the large-k kernels (a ``wgmma`` score pass into a ``[B_chunk, ld]`` buffer,
+``ld = score_stride(live)``, then a per-query histogram select and radix
+sort), with the queries chunked so the buffer stays within ``SCORE_BUDGET``
+bytes. Each kernel is built with ``nvcc`` at its first launch
+(``utils/build.py``) and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ _BOX_BYTES = 128  # width of a TMA box: one 128-byte swizzle row
 _MAX_STAGES = 6
 _SCRATCH_BYTES = 128 * 8  # a consumer warp's candidate scratch
 _MAX_CHUNKS = 64
+_SCORE_ALIGN = 32  # floats: the large-k score rows start 128-byte aligned
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
@@ -156,10 +158,13 @@ def build_large() -> Built:
             )
             lib = ctypes.CDLL(str(built.path))
             c = ctypes
-            lib.rag_cosine_topk_large.argtypes = [
-                c.c_void_p, c.c_void_p, *[c.c_int] * 5, *[c.c_void_p] * 4,
-            ]
-            lib.rag_cosine_topk_large.restype = c.c_int
+            p, i = c.c_void_p, c.c_int
+            lib.rag_cosine_topk_large.argtypes = [p, p, i, i, i, i, i, p, i, p, p, p, p]
+            lib.rag_cosine_topk_large_scores.argtypes = [p, p, i, i, i, i, p, i, p, p]
+            lib.rag_cosine_topk_large_select.argtypes = [p, i, p, i, i, i, p, p, p]
+            for fn in (lib.rag_cosine_topk_large, lib.rag_cosine_topk_large_scores,
+                       lib.rag_cosine_topk_large_select):
+                fn.restype = c.c_int
             _large_lib, _large_built = lib, built
         return _large_built
 
@@ -239,9 +244,16 @@ def cuda_cosine_topk(
     return vals, idx
 
 
+def score_stride(live: int) -> int:
+    """Floats a row of the large-k score buffer: ``live`` rounded up to 32,
+    so every row starts 128-byte aligned (at least 32)."""
+    return max(_SCORE_ALIGN, -(-live // _SCORE_ALIGN) * _SCORE_ALIGN)
+
+
 def large_chunk(n_queries: int, live: int) -> int:
-    """Queries a chunk of the large-k path, so [chunk, live] f32 fits SCORE_BUDGET."""
-    return max(1, min(n_queries, SCORE_BUDGET // (4 * max(live, 1))))
+    """Queries a chunk of the large-k path, so [chunk, score_stride(live)]
+    f32 fits SCORE_BUDGET."""
+    return max(1, min(n_queries, SCORE_BUDGET // (4 * score_stride(live))))
 
 
 def _large_topk(
@@ -250,16 +262,17 @@ def _large_topk(
 ) -> None:
     """The large-k kernels over query chunks, into vals/idx."""
     n_q, dim = q.shape
-    chunk = large_chunk(n_q, live)
-    scores = torch.empty((chunk, max(live, 1)), dtype=torch.float32, device=emb.device)
+    chunk, ld = large_chunk(n_q, live), score_stride(live)
+    scores = torch.empty((chunk, ld), dtype=torch.float32, device=emb.device)
+    stats = torch.empty((2, chunk), dtype=torch.int32, device=emb.device)
     build_large()
     with torch.cuda.device(emb.device):
         for lo in range(0, n_q, chunk):
             hi = min(lo + chunk, n_q)
             rc = _large_lib.rag_cosine_topk_large(
                 emb.data_ptr(), q[lo:hi].data_ptr(), hi - lo, dim, live, k,
-                _DTYPE_CODES[emb.dtype], scores.data_ptr(), vals[lo:hi].data_ptr(),
-                idx[lo:hi].data_ptr(), stream,
+                _DTYPE_CODES[emb.dtype], scores.data_ptr(), ld, stats.data_ptr(),
+                vals[lo:hi].data_ptr(), idx[lo:hi].data_ptr(), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"large-k cosine top-k launch failed: CUDA error {rc}")
@@ -295,3 +308,65 @@ def merge_pass(
     if rc != 0:
         raise RuntimeError(f"cosine top-k merge launch failed: CUDA error {rc}")
     return vals, idx
+
+
+def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} takes contiguous CUDA tensors on one device")
+
+
+def large_score_pass(
+    emb: torch.Tensor, queries: torch.Tensor, size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The large-k score pass alone, over every query at once: (scores
+    [B, score_stride(live)] f32, whose columns past live are not written;
+    stats [2, B], the ordered per-query max and min as int32 bits).
+
+    For timing the pass apart (``chip_smoke.py``); the search path runs it
+    inside ``cuda_cosine_topk`` and never calls this.
+    """
+    _check_cuda("the large-k score pass", emb, queries)
+    if emb.dtype not in _DTYPE_CODES or queries.dtype != emb.dtype:
+        raise TypeError("the score pass takes queries cast to a bf16, fp16 or f32 corpus")
+    n_q, dim = queries.shape
+    live = max(0, min(int(size), emb.shape[0]))
+    ld = score_stride(live)
+    scores = torch.empty((n_q, ld), dtype=torch.float32, device=emb.device)
+    stats = torch.empty((2, n_q), dtype=torch.int32, device=emb.device)
+    build_large()
+    with torch.cuda.device(emb.device):
+        rc = _large_lib.rag_cosine_topk_large_scores(
+            emb.data_ptr(), queries.data_ptr(), n_q, dim, live, _DTYPE_CODES[emb.dtype],
+            scores.data_ptr(), ld, stats.data_ptr(),
+            torch.cuda.current_stream(emb.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"large-k score pass launch failed: CUDA error {rc}")
+    return scores, stats
+
+
+def large_select_pass(
+    scores: torch.Tensor, stats: torch.Tensor, live: int, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The large-k select alone, over what ``large_score_pass`` returned.
+
+    For timing the pass apart (``chip_smoke.py``); never on the search path.
+    """
+    _check_cuda("the large-k select", scores, stats)
+    n_q, ld = scores.shape
+    if (scores.dtype != torch.float32 or stats.dtype != torch.int32
+            or tuple(stats.shape) != (2, n_q) or ld != score_stride(live)):
+        raise ValueError("the select takes the score pass's [B, ld] f32 and [2, B] int32")
+    vals = torch.empty((n_q, k), dtype=torch.float32, device=scores.device)
+    idx = torch.empty((n_q, k), dtype=torch.int32, device=scores.device)
+    build_large()
+    with torch.cuda.device(scores.device):
+        rc = _large_lib.rag_cosine_topk_large_select(
+            scores.data_ptr(), ld, stats.data_ptr(), n_q, live, k, vals.data_ptr(),
+            idx.data_ptr(), torch.cuda.current_stream(scores.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"large-k select launch failed: CUDA error {rc}")
+    return vals, idx
+

@@ -3,7 +3,9 @@
 Libraries go to ``build/rag_uq_tpu_torch/`` at the root of the checkout (git
 ignores ``build/``), or to the directory named by the environment variable
 ``RAG_UQ_TPU_TORCH_BUILD_DIR``. A library's file name carries a hash of its
-sources and its compiler command, so a stale library is never loaded. The
+sources, of every header they include by a quoted ``#include`` (found beside
+the including file, transitively), and of its compiler command, so a stale
+library is never loaded. The
 compiler writes to a temporary name that ``os.replace`` moves into place:
 there is no lock file, so nothing ever waits on one left by a cut-off build.
 """
@@ -12,12 +14,13 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Sequence
+from typing import List, Sequence
 
 BUILD_DIR_ENV = "RAG_UQ_TPU_TORCH_BUILD_DIR"
 _REPO_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rag_uq_tpu_torch"
@@ -38,6 +41,32 @@ def build_dir() -> Path:
     return Path(os.environ.get(BUILD_DIR_ENV) or _REPO_BUILD_DIR)
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(sources: Sequence[Path]) -> List[Path]:
+    """The headers that ``sources`` include with quotes, transitively, each
+    resolved beside the file that includes it, in first-seen order."""
+    seen: List[Path] = []
+    todo = [Path(s) for s in sources]
+    while todo:
+        src = todo.pop(0)
+        for name in _LOCAL_INCLUDE.findall(src.read_bytes()):
+            header = (src.parent / name.decode()).resolve()
+            if header.exists() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
+def library_path(name: str, sources: Sequence[Path], command: Sequence[str]) -> Path:
+    """Where the library of these sources, their headers and this command goes."""
+    digest = hashlib.sha256(" ".join(command).encode())
+    for src in [*map(Path, sources), *local_headers(sources)]:
+        digest.update(src.read_bytes())
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build_shared_library(
     name: str, sources: Sequence[Path], command: Sequence[str], timeout_s: float
 ) -> Built:
@@ -46,10 +75,7 @@ def build_shared_library(
     ``command`` is the compiler and its flags. The compiler's output is kept
     beside the library (``.log``) so a later caller can still read it.
     """
-    digest = hashlib.sha256(" ".join(command).encode())
-    for src in sources:
-        digest.update(Path(src).read_bytes())
-    out = build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = library_path(name, sources, command)
     log_path = out.with_suffix(".log")
     if out.exists():
         log = log_path.read_text() if log_path.exists() else ""

@@ -6,6 +6,13 @@ CPU route (the plain twin) is held to the JAX package for fp16 and f32
 corpora and for pools above 128, against ``cosine_topk_single`` and the
 Pallas kernel in interpret mode.
 
+The large-k path's wrapper logic (the padded score stride and the query
+chunks by it) is checked against the kernel source, and its select rule,
+mirrored below in torch step by step (bins over [min, max], the bin b* of
+the k-th value, the rows above it, the best of its candidates, rank
+order), is held to the JAX ``cosine_topk_single`` exactly on seeded rows
+whose k-th value sits among many ties.
+
 Tolerances: values within 1e-6 against ``cosine_topk_single`` (both take
 f32 sums of the same products, in other orders) with equal indices; within
 1e-3 against the Pallas kernel, which rounds the query to the corpus dtype
@@ -39,7 +46,7 @@ def _mk(rng, cap, dim, bsz):
 
 
 def _cu_constant(name):
-    src = ck.SOURCE.read_text()
+    src = ck.SOURCE.read_text() + ck.SOURCE.with_name("hopper_tile.cuh").read_text()
     return int(re.search(rf"constexpr (?:int|size_t) {name} = (\d+);", src).group(1))
 
 
@@ -178,3 +185,173 @@ def test_large_k_cpu_route_matches_jax(rng, k):
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     live = np.isfinite(np.asarray(jv))
     np.testing.assert_allclose(tv.numpy()[live], np.asarray(jv)[live], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("live", [0, 1, 31, 32, 33, 1001, 99_999, 100_000])
+def test_score_stride_pads_rows_to_128_bytes(live):
+    """The large-k score rows start 128-byte aligned: ld is live rounded up
+    to 32 floats (at least 32), as the kernels require (ld % 32 == 0)."""
+    ld = ck.score_stride(live)
+    assert ld % 32 == 0 and ld >= live and ld - max(live, 1) < 32
+    src = ck.SOURCE_LARGE.read_text()
+    assert "ld % 32 != 0" in src  # the C entry points refuse another stride
+
+
+def test_large_chunks_use_the_padded_stride(monkeypatch):
+    """The queries are chunked by the padded row: 300 queries of 1001 live
+    rows (ld 1024) fill a budget of 300 padded rows exactly, and the main
+    shape stays one chunk."""
+    monkeypatch.setattr(ck, "SCORE_BUDGET", 4 * ck.score_stride(1001) * 300)
+    assert ck.large_chunk(2048, 1001) == 300
+    monkeypatch.setattr(ck, "SCORE_BUDGET", 4 * 1001 * 300)  # unpadded rows: fewer fit
+    assert ck.large_chunk(2048, 1001) == 4 * 1001 * 300 // (4 * 1024)
+    monkeypatch.undo()
+    assert ck.score_stride(100_000) == 100_000
+    assert ck.large_chunk(2048, 100_000) == 2048
+
+
+SELECT_BINS = 4096  # the large-k select's histogram bins (NB in the .cu)
+
+
+def select_bins(row: torch.Tensor) -> torch.Tensor:
+    """The large-k select's bin of every score of one f32 row, as the kernel
+    computes it: ``min(NB - 1, floor((s - min) * (NB / (max - min))))``, each
+    step a correctly rounded f32 operation, so it is monotone in s; every
+    score is in bin 0 when max == min."""
+    row = row.float()
+    mx, mn = row.max(), row.min()
+    if not bool(mx > mn):
+        return torch.zeros(row.shape, dtype=torch.int64)
+    scale = torch.tensor(float(SELECT_BINS), dtype=torch.float32) / (mx - mn)
+    t = torch.nan_to_num((row - mn) * scale, nan=0.0)
+    return t.clamp(max=SELECT_BINS - 1).floor().to(torch.int64)
+
+
+def split_at_kth(bins: torch.Tensor, k: int):
+    """(b*, above, candidates): the bin that holds the k-th largest score,
+    the count of rows in higher bins and the count in b*, from the
+    histogram of ``bins`` (requires k <= len(bins))."""
+    hist = torch.bincount(bins, minlength=SELECT_BINS)
+    from_top = hist.flip(0).cumsum(0).flip(0)  # rows in bins >= b
+    bstar = int(torch.nonzero(from_top >= k).max())
+    return bstar, int(from_top[bstar] - hist[bstar]), int(hist[bstar])
+
+
+def large_select_plain(scores: torch.Tensor, k: int):
+    """The large-k select's steps in plain PyTorch, one query row at a time:
+    bins, b*, the rows above b* and the best of b*'s candidates (value
+    descending, lowest row among ties), then rank order. Scores of -0.0 read
+    as +0.0, as the kernel stores them."""
+    n_q, live = scores.shape
+    n_out = min(k, live)
+    vals = torch.full((n_q, k), float("-inf"), dtype=torch.float32)
+    idx = torch.full((n_q, k), -1, dtype=torch.int32)
+    for b in range(n_q):
+        row = scores[b].float() + 0.0
+        sel = torch.arange(live)
+        if live > k:
+            bins = select_bins(row)
+            bstar, above, _ = split_at_kth(bins, k)
+            cand = torch.nonzero(bins == bstar).flatten()  # row order
+            order = torch.sort(row[cand], descending=True, stable=True).indices
+            sel = torch.cat([torch.nonzero(bins > bstar).flatten(), cand[order[: k - above]]])
+        order = torch.sort(row[sel], descending=True, stable=True).indices
+        sel = sel[order][:n_out]
+        vals[b, :n_out], idx[b, :n_out] = row[sel], sel.to(torch.int32)
+    return vals, idx
+
+
+def test_select_constants_match_the_kernel_source():
+    src = ck.SOURCE_LARGE.read_text()
+    assert int(re.search(r"constexpr int NB = (\d+);", src).group(1)) == SELECT_BINS
+
+
+def _select_rows(rng, kind, n_q, live):
+    """Seeded f32 score rows of one kind."""
+    if kind == "random":
+        return rng.normal(0.0, 0.036, size=(n_q, live)).astype(np.float32)
+    if kind == "one_octave":  # every score in [0.0625, 0.125)
+        return rng.uniform(0.0625, 0.125, size=(n_q, live)).astype(np.float32)
+    if kind == "all_equal":
+        return np.full((n_q, live), 0.25, dtype=np.float32)
+    if kind == "two_valued":  # one row in 7 high, one query the other way round
+        rows = np.where(np.arange(live) % 7 == 0, 0.5, -0.25).astype(np.float32)
+        return np.stack([rows if i % 2 == 0 else -rows for i in range(n_q)])
+    if kind == "clustered":  # a few values, each on many rows, and signed zeros
+        vals = np.array([0.1, 0.1 + 2**-20, -0.0, 0.0, 0.3], dtype=np.float32)
+        return vals[rng.integers(0, len(vals), size=(n_q, live))]
+    raise ValueError(kind)
+
+
+def _jax_topk_of_scores(scores, k):
+    """The JAX cosine_topk_single on a corpus whose products are `scores`
+    exactly: query b is the b-th unit vector, corpus row n holds scores[:, n]
+    (every other product is zero, so each sum is the one score); rows past
+    live are masked capacity."""
+    n_q, live = scores.shape
+    dim = -(-n_q // 8) * 8
+    emb = np.zeros((max(live, k), dim), dtype=np.float32)
+    emb[:live, :n_q] = scores.T
+    q = np.eye(n_q, dim, dtype=np.float32)
+    v, i = jax_topk.cosine_topk_single(jnp.asarray(emb), jnp.asarray(q), jnp.int32(live), k)
+    return np.asarray(v), np.asarray(i)
+
+
+SELECT_CASES = [
+    # (kind, live, k)
+    ("random", 3000, 257),
+    ("random", 3000, 1000),
+    ("one_octave", 4096, 300),
+    ("all_equal", 2000, 500),
+    ("two_valued", 2100, 257),
+    ("two_valued", 2100, 1000),
+    ("clustered", 2500, 700),
+    ("random", 600, 600),  # k = live
+    ("random", 500, 700),  # k > live
+]
+
+
+@pytest.mark.parametrize("case", SELECT_CASES,
+                         ids=[f"{c[0]}-live{c[1]}-k{c[2]}" for c in SELECT_CASES])
+def test_large_select_rule_matches_jax(rng, case):
+    """The large-k select's steps (bins, b*, above, the candidates of b*,
+    rank order), mirrored in torch, give the JAX top-k exactly, values and
+    rows, on rows that put the k-th value in one bin with many ties."""
+    kind, live, k = case
+    scores = _select_rows(rng, kind, 4, live)
+    tv, ti = large_select_plain(torch.from_numpy(scores), k)
+    jv, ji = _jax_topk_of_scores(scores, k)
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    if live > k:
+        for row in scores:
+            bins = select_bins(torch.from_numpy(row))
+            bstar, above, cand = split_at_kth(bins, k)
+            assert above < k <= above + cand
+            assert above == int((bins > bstar).sum()) and cand == int((bins == bstar).sum())
+
+
+def test_select_bins_are_monotone_and_split_one_octave(rng):
+    """The bin rule is non-decreasing in the score, puts max in the top bin
+    and min in bin 0, and separates scores inside one octave, where the
+    first 8-bit digit of the ordered float does not."""
+    row = torch.from_numpy(np.sort(_select_rows(rng, "one_octave", 1, 100_000)[0]))
+    bins = select_bins(row)
+    assert bool((bins[1:] >= bins[:-1]).all())
+    assert int(bins[0]) == 0 and int(bins[-1]) == SELECT_BINS - 1
+    assert bins.unique().numel() > SELECT_BINS * 0.9
+    top_byte = (row.view(torch.int32) >> 24).unique()
+    assert top_byte.numel() == 1
+    assert int(select_bins(torch.full((10,), 0.5)).max()) == 0  # max == min: bin 0
+
+
+def test_large_pass_wrappers_refuse_cpu_tensors_before_building(monkeypatch):
+    def refuse():
+        raise AssertionError("the kernels must not be built for a CPU tensor")
+
+    monkeypatch.setattr(ck, "build_large", refuse)
+    emb = torch.zeros((64, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.large_score_pass(emb, emb[:2], 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.large_select_pass(torch.zeros((2, 64)), torch.zeros((2, 2), dtype=torch.int32), 64, 300)
