@@ -17,7 +17,9 @@ Phases, each printing one line "phase <name> ok <seconds>":
            edge cases of tests/test_pallas_topk.py, then at the main path's
            shapes B = 2048 and 1, k = 128 and MAX_K, a ragged query tile, a
            full index, all-negative scores past a partial last tile, ties
-           across the corpus-chunk boundaries, and fp16 and f32 corpora;
+           across the corpus-chunk boundaries, fp16 and f32 corpora, and
+           D = 256 (the trained encoder's width, which the answer phase
+           serves) at the main batch and index;
            timed with CUDA events beside its bound, the plain twin,
            torch.matmul + torch.topk (library_ms) and torch.matmul alone
            (library_matmul_ms), with the merge pass timed apart;
@@ -52,9 +54,27 @@ Phases, each printing one line "phase <name> ok <seconds>":
            format and reloaded onto the card answers the same queries
            identically (the fused query, and DenseIndex.search_batch at
            k = 1000, the large-k path); serve_http on 127.0.0.1:0 answers
-           /healthz, /search, /ingest and /answer through urllib.
+           /healthz, /search, /ingest and /answer through urllib;
+  answer   the JAX server's default configuration from the checkpoints in
+           the checkout: the demo run's encoder, router and TinyLM
+           (models/tiny_lm_r5), and cli/serve.py main's two default paths
+           (loaded, not served); the 5,000 demo passages embedded on the card
+           (64 held to the same module on the CPU, cosine >= 0.999) into a
+           HybridRetriever behind a QueryService with the router; the heap
+           kernel against its plain twin at the answer path's shapes (B = 500,
+           k = 10 and B = 1, k = 50 over the 5,000 live D = 256 rows, before
+           the path's launch counts are zeroed); dense-only
+           recall@10 of gold_doc_ids over 500 questions >= 0.7; 32 questions
+           through serve_http's /answer (concat policy) and 8 per_passage,
+           well formed, exact match within 0.1 of the fixture
+           tests/data/torch_answer_fixture.json's; the fixture's 32 prompts
+           decoded greedily, at least 28 answers equal to the JAX package's;
+           MC confidence for 16 questions x 10 samples in one generate call,
+           twice with one seed (same answers); the demo calibration set's
+           conformal threshold and p-values against numpy; generate and
+           /answer round-trip times.
 
-Each of the four serving paths runs with the kernel's launch counts set to 0
+Each of the five serving paths runs with the kernel's launch counts set to 0
 just before it and fails if the dense kernel was not launched in it (the
 persist path also if the large-k kernels were not). Then one JSON line
 {"kernels": [...]}, a row for the heap kernel and one for the large-k
@@ -68,6 +88,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import faulthandler
+import itertools
 import json
 import subprocess
 import sys
@@ -81,20 +102,30 @@ from unittest import mock
 import numpy as np
 import torch
 
+from rag_uq_tpu_torch.cli import serve as serve_mod
 from rag_uq_tpu_torch.cli.bench_sharded import tie_aware_agreement
+from rag_uq_tpu_torch.cli.evaluate import build_qa_prompt
 from rag_uq_tpu_torch.cli.serve import QueryService, serve_http
 from rag_uq_tpu_torch.core.config import (
     BM25Config, DenseIndexConfig, EmbedderConfig, router_recipe_v2,
 )
 from rag_uq_tpu_torch.core.types import Document
+from rag_uq_tpu_torch.embed.encoder import TransformerEmbedder
 from rag_uq_tpu_torch.embed.hash_embed import Sha256Embedder
+from rag_uq_tpu_torch.embed.train import load_encoder_checkpoint
+from rag_uq_tpu_torch.eval.metrics import exact_match
 from rag_uq_tpu_torch.index.dense import DenseIndex
+from rag_uq_tpu_torch.llm.tiny_lm import TinyLM
+from rag_uq_tpu_torch.llm.train import load_lm_checkpoint
 from rag_uq_tpu_torch.native import binding as native_binding
 from rag_uq_tpu_torch.ops import cosine_topk as ck
 from rag_uq_tpu_torch.retrieval import fused as fused_mod
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever
 from rag_uq_tpu_torch.router.model import RetrievalRouter
+from rag_uq_tpu_torch.router.train import load_router_checkpoint
 from rag_uq_tpu_torch.text.tokenize import fnv1a_64
+from rag_uq_tpu_torch.uq.conformal import ConformalRAG, conformal_p_value_device
+from rag_uq_tpu_torch.uq.mc import MCDropoutConfidence
 
 WATCHDOG_S = 840  # well inside the 1200 s a run may take
 # bench.py's shape.
@@ -107,6 +138,14 @@ LARGE_KS = (257, 1000, 8192)
 KERNEL_ATOL = 1e-3  # kernel vs plain twin: f32 sums of bf16 products, other order
 F32_ATOL = 1e-5  # f32 corpus: f32 FMA products on both sides (no TF32), other order
 FNV_PRIME = np.uint64(0x100000001B3)
+# The answer phase: the demo run's checkpoints and data, and main's defaults.
+ENCODER_DIM = 256
+RUN = Path("runs/demo_full_r4")
+DEMO_ENCODER, DEMO_ROUTER = RUN / "encoder/encoder.msgpack", RUN / "router/best_router.msgpack"
+DEMO_LM = Path("models/tiny_lm_r5/tiny_lm.msgpack")
+FIXTURE = Path("tests/data/torch_answer_fixture.json")
+N_RECALL, N_ANSWER, N_PER_PASSAGE, N_MC, MC_SAMPLES = 500, 32, 8, 16, 10
+MIN_DENSE_RECALL, EM_SLACK, MIN_GREEDY_SAME = 0.7, 0.1, 28
 
 
 @contextlib.contextmanager
@@ -310,6 +349,8 @@ def phase_kernel(gen: torch.Generator) -> dict:
     # fp16 and f32 corpora (f32: f32 FMA products, held to F32_ATOL).
     err = max(err, case("fp16 corpus", emb.half(), q, N_DOCS, POOL)[0])
     f32_err = case("f32 corpus", emb.float(), q, N_DOCS, POOL, F32_ATOL)[0]
+    d256 = encoder_width_case(case, corpus)
+    err = max(err, d256["max_abs_err"])
 
     ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, N_DOCS, POOL), reps=20)
     plain_ms = cuda_ms(lambda: ck.cosine_topk_plain(emb, q, N_DOCS, POOL), reps=5)
@@ -355,8 +396,30 @@ def phase_kernel(gen: torch.Generator) -> dict:
         "max_abs_err": err, "f32_max_abs_err": f32_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms, "library_matmul_ms": library_matmul_ms,
-        "merge_ms": merge_ms,
+        "merge_ms": merge_ms, "d256": d256,
     }
+
+
+def encoder_width_case(case, corpus) -> dict:
+    """The heap kernel at the trained encoder's width, D = 256, at the main
+    batch and index: against the plain twin, then timed beside its bound
+    and torch.matmul + torch.topk."""
+    emb, q = corpus(CAP, ENCODER_DIM, BATCH)
+    err = case(f"B={BATCH} cap={CAP} D={ENCODER_DIM} k={POOL} (the encoder's width)",
+               emb, q, N_DOCS, POOL)[0]
+    ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, N_DOCS, POOL), reps=20)
+    plain_ms = cuda_ms(lambda: ck.cosine_topk_plain(emb, q, N_DOCS, POOL), reps=5)
+    live, q16 = emb[:N_DOCS], q.bfloat16()
+    library_ms = cuda_ms(lambda: torch.topk(torch.matmul(q16, live.T), POOL), reps=20)
+    flops = 2.0 * BATCH * N_DOCS * ENCODER_DIM
+    bytes_moved = N_DOCS * ENCODER_DIM * 2 + BATCH * ENCODER_DIM * 2 + BATCH * POOL * 8
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_moved / PEAK_BYTES_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    log(f"  cosine_topk D={ENCODER_DIM}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of it)")
+    return {"dim": ENCODER_DIM, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def phase_kernel_large(gen: torch.Generator) -> dict:
@@ -944,6 +1007,255 @@ def phase_persist(ctx: dict) -> tuple:
     return launches, large
 
 
+def read_jsonl(path: Path, n=None) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in itertools.islice(f, n)]
+
+
+def phase_answer(device: str = "cuda") -> dict:
+    """The JAX server's default configuration on the card: the trained
+    encoder, the router and TinyLM from the checkpoints in the checkout,
+    /answer under both policies, greedy decoding against the JAX fixture,
+    MC and conformal UQ. (``device`` is "cuda" in every run of this script.)"""
+    # Checkpoints: the demo run's triple, and main's two default paths.
+    t0 = time.perf_counter()
+    encoder = load_encoder_checkpoint(str(DEMO_ENCODER), device=device)
+    router = RetrievalRouter(device=device)
+    load_router_checkpoint(router, str(DEMO_ROUTER))
+    lm = load_lm_checkpoint(str(DEMO_LM), device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = serve_mod.parse_args(["--bm25-path", f"{tmp}/bm25.json", "--dense-dir",
+                                     f"{tmp}/dense", "--device", device])
+        default_service, default_lm = serve_mod.build_service(args)
+        default_service.close()
+    default_encoder = default_service.retriever.dense_index.embedder
+    if not (isinstance(default_encoder, TransformerEmbedder) and default_encoder.dim == ENCODER_DIM
+            and isinstance(default_lm, TinyLM) and default_lm.device.type == device
+            and args.encoder_checkpoint == "models/encoder/encoder.msgpack"
+            and args.lm_checkpoint == "models/tiny_lm/tiny_lm.msgpack"):
+        raise AssertionError("main's defaults did not load the shipped encoder and TinyLM")
+    if router.config.feature_set != "pool7" or router.trained_num_passages != 20:
+        raise AssertionError(f"router checkpoint: {router.config} {router.trained_num_passages}")
+    del default_service, default_lm, default_encoder
+    log(f"  checkpoints: encoder {DEMO_ENCODER} ({encoder.config.dim}-d, "
+        f"{encoder.config.num_layers} layers), router {DEMO_ROUTER} ({router.config.feature_set}), "
+        f"TinyLM {DEMO_LM} ({lm.config.dim}-d, {lm.config.num_layers} layers), and main's "
+        f"defaults: {time.perf_counter() - t0:.2f}s")
+
+    # Embedding: the corpus on the card, 64 passages held to the CPU.
+    rows = read_jsonl(RUN / "corpus.jsonl")
+    texts = [r["text"] for r in rows]
+    vecs, t_embed = timed(lambda: encoder.encode(texts))
+    cpu = TransformerEmbedder(encoder.config, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in encoder.model.state_dict().items()})
+    cos = (cpu.encode(texts[:64]) * vecs[:64]).sum(axis=1)
+    if cos.min() < 0.999 or not np.isfinite(vecs).all():
+        raise AssertionError(f"encoder on the card vs the CPU: min cosine {cos.min()}")
+    log(f"  encoder: {len(texts)} passages in {t_embed:.4f} s = {len(texts) / t_embed:.1f} "
+        f"passages/s; 64 against the CPU, min cosine {cos.min():.6f}")
+
+    # The index and the service.
+    retriever, t_index = timed(lambda: build_demo_index(encoder, rows, device))
+    service = QueryService(retriever, router=router)
+    qa = read_jsonl(RUN / "nq.jsonl", N_RECALL)
+    kernel_err = answer_kernel_cases(retriever.dense_index, [r["question"] for r in qa],
+                                     service.pool_size)
+    ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+    _, pos = retriever.dense_index.search_batch([r["question"] for r in qa], top_k=10)
+    ids = retriever.documents.ids
+    recall = float(np.mean([len(set(r["gold_doc_ids"]) & {ids[p] for p in row if p >= 0})
+                            / len(r["gold_doc_ids"]) for r, row in zip(qa, pos)]))
+    recall_launches = ck.cuda_cosine_topk.launches
+    log(f"  index: {len(retriever)} passages (BM25 + D={ENCODER_DIM} dense) in {t_index:.2f} s; "
+        f"dense-only recall@10 of gold_doc_ids over {N_RECALL} questions {recall:.4f}, "
+        f"kernel launches {recall_launches}")
+    if recall < MIN_DENSE_RECALL or recall_launches < 1:
+        raise AssertionError(f"dense recall@10 {recall} (gate {MIN_DENSE_RECALL}), "
+                             f"launches {recall_launches}")
+
+    fixture = json.loads(FIXTURE.read_text())
+    if fixture["questions"] != [r["question"] for r in qa[:N_ANSWER]]:
+        raise AssertionError("the fixture's questions are not the first of nq.jsonl")
+    try:
+        answers, launches, trips = serve_answers(service, lm, fixture)
+    finally:
+        service.close()
+    em = float(np.mean([max(exact_match(a["answer"], g) for g in gold)
+                        for a, gold in zip(answers, fixture["answers"])]))
+    other_ctx = [i for i, (a, c) in enumerate(zip(answers, fixture["contexts"]))
+                 if a["passages"][0]["text"] != c]
+    log(f"  /answer: {N_ANSWER} concat + {N_PER_PASSAGE} per_passage, all well formed; exact "
+        f"match {em:.4f} (fixture's JAX greedy {fixture['exact_match']:.4f}); top-1 passage as "
+        f"the fixture's for {N_ANSWER - len(other_ctx)}/{N_ANSWER} (not for questions "
+        f"{other_ctx}); kernel launches {launches}; round trip median (first) "
+        f"{trips['concat']['median']:.4f} s ({trips['concat']['first']:.4f}) "
+        f"concat, {trips['per_passage']['median']:.4f} s ({trips['per_passage']['first']:.4f}) "
+        f"per_passage")
+    if abs(em - fixture["exact_match"]) > EM_SLACK or launches < N_ANSWER:
+        raise AssertionError(f"/answer exact match {em} vs {fixture['exact_match']}, "
+                             f"launches {launches}")
+
+    # Greedy decoding of the fixture's prompts against the JAX answers.
+    prompts = [build_qa_prompt(q, c) for q, c in zip(fixture["questions"], fixture["contexts"])]
+    n = len(prompts)
+    (greedy, mean_lp, _), t_greedy = timed(lambda: lm.generate_batch_scored(
+        prompts, [0.1] * n, [fixture["top_p"]] * n, max_tokens=fixture["max_tokens"], seed=0))
+    same = sum(a == b for a, b in zip(greedy, fixture["jax_greedy"]))
+    lp_err = float(np.abs(np.asarray(mean_lp) - fixture["jax_mean_logprob"])[
+        [i for i in range(n) if greedy[i] == fixture["jax_greedy"][i]]].max())
+    log(f"  greedy: {same}/{n} answers equal to the JAX fixture's (gate {MIN_GREEDY_SAME}); max "
+        f"|mean log-prob diff| where equal {lp_err:.4f}; differing: "
+        f"{[(g, j) for g, j in zip(greedy, fixture['jax_greedy']) if g != j][:4]}")
+    if same < MIN_GREEDY_SAME:
+        raise AssertionError(f"greedy answers: {same}/{n} equal to the JAX fixture's")
+    gen_times = {"B=32 greedy": (t_greedy, dict(lm.last_stats))}
+    for b in (1, 3):
+        _, t = timed(lambda: lm.generate_batch_scored(prompts[:b], [0.1] * b, [0.9] * b, seed=1))
+        gen_times[f"B={b}"] = (t, dict(lm.last_stats))
+
+    # MC: 16 questions x K = 10 in one generate call, twice with one seed.
+    mc_out = []
+    for _ in range(2):
+        mc = MCDropoutConfidence(lm, n_samples=MC_SAMPLES, seed=7, device=device)
+        res, t_mc = timed(lambda: mc.get_confidence_batch(
+            ConformalRAG._MC_INSTRUCTION, fixture["contexts"][:N_MC], fixture["questions"][:N_MC]))
+        mc_out.append(res)
+    gen_times[f"B={N_MC * MC_SAMPLES} (MC)"] = (t_mc, dict(lm.last_stats))
+    conf = [r.confidence for r in mc_out[0]]
+    if len(conf) != N_MC or not all(0.0 <= c <= 1.0 for c in conf):
+        raise AssertionError(f"MC confidences {conf}")
+    if [r.answers for r in mc_out[0]] != [r.answers for r in mc_out[1]]:
+        raise AssertionError("MC: the same seed gave other answers on the card")
+    log(f"  MC: {N_MC} x {MC_SAMPLES} samples in one call, {t_mc:.4f} s; confidences "
+        f"{min(conf):.3f}-{max(conf):.3f}, mean {np.mean(conf):.3f}; same seed, same answers")
+    for name, (t, st) in gen_times.items():
+        log(f"  TinyLM generate {name}: {t:.4f} s, {st['rows']} rows (padded), prefill "
+            f"{st['prefill']}, {st['steps']} decode steps, {st['tokens']} tokens = "
+            f"{st['tokens'] / t:.1f} tokens/s")
+
+    decode = {f"B={b}": decode_profile(lm, prompts[:b]) for b in (1, N_ANSWER)}
+    conformal = check_conformal(lm, device)
+    return {"launches": launches, "recall_launches": recall_launches, "recall": recall,
+            "kernel_max_abs_err": kernel_err,
+            "em": em, "greedy_same": same, "passages_per_s": len(texts) / t_embed,
+            "generate_s": {k: v[0] for k, v in gen_times.items()}, "round_trip_s": trips,
+            "decode_profile": decode, "conformal": conformal}
+
+
+def answer_kernel_cases(index, questions, pool: int) -> float:
+    """The heap kernel against its plain twin at the answer path's own
+    shapes, on the demo index's vectors: the recall queries (B = 500, k = 10)
+    and one question at the service's pool width (B = 1, k = 50), both over
+    the 5,000 live D = 256 rows. Returns the larger max |diff|."""
+    emb, size = index._emb, len(index)
+    err = 0.0
+    for what, q, k in ((f"recall B={len(questions)} k=10", index.embed_queries(questions), 10),
+                       (f"/answer pool B=1 k={pool}", index.embed_queries(questions[:1]), pool)):
+        kv, ki = ck.cuda_cosine_topk(emb, q, size, k)
+        pv, pi = ck.cosine_topk_plain(emb, q, size, k)
+
+        def plain_rows(ids, q=q):  # the plain twin's product, for the listed queries
+            return torch.matmul(q[ids].to(emb.dtype).float(), emb[:size].float().T)
+
+        err = max(err, check_topk(kv, ki, pv, pi, f"answer path {what} over {size} live rows "
+                                  f"D={ENCODER_DIM}", KERNEL_ATOL, plain_rows))
+    return err
+
+
+def decode_profile(lm, prompts) -> dict:
+    """One greedy generate call under torch.profiler: wall time, the
+    device's busy time (the sum of its kernels' and copies' durations) and
+    the number of them, each per decode step, and the device's idle share."""
+    n = len(prompts)
+    run = lambda: lm.generate_batch_scored(prompts, [0.1] * n, [1e-6] * n, max_tokens=32, seed=0)
+    run()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        _, wall = timed(run)
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in on_device) * 1e-6
+    steps = lm.last_stats["steps"] + 1  # the decode steps and the prefill
+    out = {"wall_ms_per_step": wall / steps * 1e3, "busy_ms_per_step": busy_s / steps * 1e3,
+           "device_ops_per_step": len(on_device) / steps, "idle_share": 1.0 - busy_s / wall,
+           "steps": steps, "wall_s": wall}
+    log(f"  decode profile B={n}: {steps} steps (prefill included) in {wall:.4f} s, "
+        f"{out['wall_ms_per_step']:.3f} ms a step on the host clock, device busy "
+        f"{out['busy_ms_per_step']:.3f} ms a step in {out['device_ops_per_step']:.1f} kernels "
+        f"and copies, idle share {out['idle_share']:.1%}")
+    return out
+
+
+def build_demo_index(encoder, rows, device: str) -> HybridRetriever:
+    retriever = HybridRetriever(embedder=encoder, device=device)
+    retriever.add_documents([Document.from_dict(r) for r in rows])
+    retriever._fused_state()
+    return retriever
+
+
+def serve_answers(service, lm, fixture):
+    """/answer through serve_http on 127.0.0.1:0: the fixture's questions
+    with the concat policy, the first few with per_passage. Returns (concat
+    responses, dense kernel launches, the first and the median round trip a
+    policy in seconds)."""
+    server = serve_http(service, llm=lm, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+    trips = {"concat": [], "per_passage": []}
+    try:
+        answers, per_passage = [], []
+        for policy, out, questions in (("concat", answers, fixture["questions"]),
+                                       ("per_passage", per_passage,
+                                        fixture["questions"][:N_PER_PASSAGE])):
+            for q in questions:
+                t0 = time.perf_counter()
+                out.append(http_json(port, "/answer", {"question": q, "context_policy": policy}))
+                trips[policy].append(time.perf_counter() - t0)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    launches = ck.cuda_cosine_topk.launches
+    for a in answers + per_passage:
+        hits = a.get("passages")
+        if not (isinstance(a.get("answer"), str) and 0.0 <= a.get("confidence", -1) <= 1.0
+                and isinstance(hits, list) and 0 < len(hits) <= 10
+                and all({"doc_id", "score", "text"} <= set(h) for h in hits)):
+            raise AssertionError(f"/answer malformed: {str(a)[:200]}")
+    if not all(a["answer"] for a in answers[:4]):
+        raise AssertionError("/answer returned empty answers")
+    return answers, launches, {k: {"first": v[0], "median": float(np.median(v))}
+                               for k, v in trips.items()}
+
+
+def check_conformal(lm, device: str) -> dict:
+    """The calibration set of the demo run, on the card: the threshold and
+    p-values against numpy on the same scores."""
+    with tempfile.TemporaryDirectory() as tmp:
+        db = Path(tmp) / "calibration.db"
+        db.write_bytes((RUN / "calibration.db").read_bytes())  # the checkout's file stays as it is
+        conformal = ConformalRAG(lm, calibration_db_path=str(db), alpha=0.1, device=device)
+        scores = np.asarray(conformal.calibration_scores, dtype=np.float32)
+        if conformal._scores_device.device.type != device or len(scores) != 500:
+            raise AssertionError(f"calibration scores: {len(scores)} on "
+                                 f"{conformal._scores_device.device}")
+        n = len(scores)
+        level = min(np.ceil((n + 1) * (1 - np.float32(0.1))) / n, 1.0)
+        ref = float(np.quantile(scores, level, method="linear"))
+        threshold = conformal.get_conformal_threshold()
+        estimates = [0.0, float(np.median(scores)), threshold, float(scores.max()), 1.0]
+        p_err = max(abs(float(conformal_p_value_device(conformal._scores_device, e))
+                        - (np.sum(scores >= np.float32(e)) + 1) / (n + 1)) for e in estimates)
+        stats = conformal.get_calibration_stats()
+    if abs(threshold - ref) > 1e-6 or p_err > 1e-6:
+        raise AssertionError(f"conformal on the card: threshold {threshold} vs numpy {ref}, "
+                             f"p-value error {p_err}")
+    log(f"  conformal: {n} calibration scores on the card, threshold {threshold:.6f} (numpy "
+        f"{ref:.6f}), p-values within {p_err:.2g} of a numpy count; mean {stats['mean']:.4f}")
+    return {"n": n, "threshold": threshold, "numpy_threshold": ref, "p_value_err": p_err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -968,10 +1280,15 @@ def main() -> int:
         ingest_launches = phase_ingest(ctx)
     with phase("persist"):
         persist_launches, large_launches = phase_persist(ctx)
+    with phase("answer"):
+        answer = phase_answer()
     faulthandler.cancel_dump_traceback_later()
     row["launches"] = ctx["launches"]
     row["launches_by_path"] = {"scatter": ctx["launches"], "twotier": twotier_launches,
-                               "ingest": ingest_launches, "persist_http": persist_launches}
+                               "ingest": ingest_launches, "persist_http": persist_launches,
+                               "answer": answer["launches"],
+                               "answer_recall": answer["recall_launches"]}
+    row["answer_phase"] = {k: v for k, v in answer.items() if "launches" not in k}
     large_row["launches"] = large_launches  # the persist path's k = 1000 searches
     row["bm25_pool_s"] = {"scatter": ctx["scatter_pool_s"], "twotier": ctx["twotier_pool_s"]}
     print(json.dumps({"kernels": [row, large_row]}), flush=True)

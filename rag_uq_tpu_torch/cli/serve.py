@@ -8,18 +8,21 @@ query per tick (``QueryService``), behind a stdlib HTTP front end
 - ``POST /search`` {"queries": [...], "k": N}: hits per query;
 - ``POST /ingest`` {"documents": [{"id", "text", ...}, ...]}: live ingest,
   delta-synced when ``bm25.delta_sync_fraction > 0``;
-- ``POST /answer`` {"question": ..., "k": N, "context_passages": n}: the
-  JAX server's ``llm=None`` form, the top passage as the answer and the
-  length-ratio confidence of ``uq/conformal.py`` against the top-n context.
+- ``POST /answer`` {"question": ..., "k": N, "context_passages": n,
+  "context_policy": "concat" | "per_passage"}: with a generator, the
+  ``concat`` policy answers from the top-n passages joined and clipped to
+  2,000 characters, and ``per_passage`` generates once per passage over at
+  least 3 and keeps the best (``cli/evaluate.py``); without one, the top
+  passage is the answer. The confidence is the length-ratio heuristic of
+  ``uq/conformal.py`` against the context.
+
+``main`` takes the JAX server's defaults: the trained encoder
+``models/encoder/encoder.msgpack`` on the dense side and TinyLM
+``models/tiny_lm/tiny_lm.msgpack`` for ``/answer``; a default path that
+does not exist means "not used", and an empty string turns one off.
 
     python3 -m rag_uq_tpu_torch.cli.serve --bm25-path data/bm25_index.json \
-        --dense-dir data/dense_index --port 8080
-
-Deviation from the JAX ``main``: ``--encoder-checkpoint``,
-``--lm-checkpoint`` and ``--router-checkpoint`` default to '' (the JAX
-defaults name ``models/*.msgpack`` files, which need ``msgpack`` and models
-the port does not have yet); naming one raises an error that points at the
-``ROADMAP.md`` item that ports it. So ``/answer`` has no generator here.
+        --dense-dir data/dense_index --port 8080 [--device cpu]
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import queue
 import threading
 import time
@@ -34,10 +38,13 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Sequence
 
+from rag_uq_tpu_torch.cli.evaluate import generate_answer, generate_answer_per_passage
 from rag_uq_tpu_torch.core.types import Document
-
+from rag_uq_tpu_torch.embed.train import load_encoder_checkpoint
+from rag_uq_tpu_torch.llm.train import load_lm_checkpoint
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever
 from rag_uq_tpu_torch.router.model import RetrievalRouter
+from rag_uq_tpu_torch.router.train import load_router_checkpoint
 from rag_uq_tpu_torch.uq.conformal import ConformalRAG
 
 logger = logging.getLogger(__name__)
@@ -323,9 +330,15 @@ class QueryService:
 
 
 def serve_http(
-    service: QueryService, host: str = "127.0.0.1", port: int = 8080
+    service: QueryService,
+    llm=None,
+    host: str = "127.0.0.1",
+    port: int = 8080,
+    context_policy: str = "concat",
 ) -> ThreadingHTTPServer:
-    """Start the HTTP front end (returns the server; call serve_forever)."""
+    """Start the HTTP front end (returns the server; call serve_forever).
+    ``llm`` generates the ``/answer`` text; ``context_policy`` is its
+    default policy, which a request may override."""
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, payload: Dict) -> None:
@@ -369,11 +382,18 @@ def serve_http(
             elif self.path == "/answer":
                 question = payload.get("question", "")
                 k = int(payload.get("k", 10))
+                policy = payload.get("context_policy", context_policy)
                 # Top-1 context by default; context_passages widens it.
                 n_ctx = int(payload.get("context_passages", 1))
                 hits = service.search([question], k)[0]
                 context = " ".join(h["text"] for h in hits[:n_ctx])[:2000]
-                answer = hits[0]["text"] if hits else ""
+                if llm is not None and policy == "per_passage":
+                    answer, context = generate_answer_per_passage(
+                        llm, question, [h["text"][:2000] for h in hits[: max(n_ctx, 3)]])
+                elif llm is not None:
+                    answer = generate_answer(llm, question, context)
+                else:
+                    answer = hits[0]["text"] if hits else ""
                 confidence = 1.0 - ConformalRAG.estimate_nonconformity(answer, context)
                 self._send(200, {"answer": answer, "confidence": confidence, "passages": hits})
             else:
@@ -384,51 +404,67 @@ def serve_http(
     return server
 
 
-# The ROADMAP.md items that port what each checkpoint flag would load.
-_UNPORTED_CHECKPOINTS = {
-    "encoder_checkpoint": "A.4 (embed/encoder.py::TransformerEmbedder)",
-    "lm_checkpoint": "A.6 (llm/tiny_lm.py, UQ and generation)",
-    "router_checkpoint": "A.7 (router/train.py checkpoints)",
-}
-
-
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Serve the hybrid index")
     parser.add_argument("--bm25-path", default="./data/bm25_index.json")
     parser.add_argument("--dense-dir", default="./data/dense_index")
-    parser.add_argument("--router-checkpoint", default="",
-                        help="not ported yet (ROADMAP.md A.7); leave empty")
-    parser.add_argument("--encoder-checkpoint", default="",
-                        help="not ported yet (ROADMAP.md A.4); leave empty to "
-                        "use the configured hash embedder")
-    parser.add_argument("--lm-checkpoint", default="",
-                        help="not ported yet (ROADMAP.md A.6); leave empty to "
-                        "return the top passage from /answer")
+    parser.add_argument("--router-checkpoint", default=None,
+                        help="trained router (router/train.py checkpoint)")
+    parser.add_argument(
+        "--encoder-checkpoint", default="models/encoder/encoder.msgpack",
+        help="trained TransformerEmbedder for the dense side; pass '' to use "
+        "the configured hash embedder")
+    parser.add_argument(
+        "--lm-checkpoint", default="models/tiny_lm/tiny_lm.msgpack",
+        help="trained TinyLM for /answer; pass '' to return the top passage")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8080)
+    parser.add_argument(
+        "--context-policy", default="concat", choices=("concat", "per_passage"),
+        help="/answer default context policy (a request may override it)")
     parser.add_argument(
         "--sparse-mode", default="scatter", choices=["scatter", "twotier"],
         help="BM25 pool op: 'scatter' (default) or 'twotier'",
     )
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    args = parser.parse_args(argv)
-    for name, item in _UNPORTED_CHECKPOINTS.items():
-        if getattr(args, name):
-            parser.error(f"--{name.replace('_', '-')} is not ported yet: ROADMAP.md item {item}")
+    return parser.parse_args(argv)
 
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    retriever = HybridRetriever(
-        bm25_persist_path=args.bm25_path,
-        dense_persist_directory=args.dense_dir,
-        device=args.device,
-    )
-    service = QueryService(retriever, sparse_mode=args.sparse_mode)
-    server = serve_http(service, host=args.host, port=args.port)
+    service, llm = build_service(args)
+    server = serve_http(service, llm=llm, host=args.host, port=args.port,
+                        context_policy=args.context_policy)
     try:
         server.serve_forever()
     finally:
         server.server_close()
         service.close()
+
+
+def build_service(args: argparse.Namespace):
+    """(QueryService, generator or None) from ``main``'s arguments: the
+    checkpoints the JAX server loads by default, where their files exist."""
+    embedder = None
+    if args.encoder_checkpoint and os.path.exists(args.encoder_checkpoint):
+        embedder = load_encoder_checkpoint(args.encoder_checkpoint, device=args.device)
+        logger.info("Serving with trained encoder %s", args.encoder_checkpoint)
+    retriever = HybridRetriever(
+        bm25_persist_path=args.bm25_path,
+        dense_persist_directory=args.dense_dir,
+        embedder=embedder,
+        device=args.device,
+    )
+    llm = None
+    if args.lm_checkpoint and os.path.exists(args.lm_checkpoint):
+        llm = load_lm_checkpoint(args.lm_checkpoint, device=args.device)
+        logger.info("Serving with trained TinyLM %s", args.lm_checkpoint)
+    router = None
+    if args.router_checkpoint:
+        router = RetrievalRouter(device=args.device)
+        load_router_checkpoint(router, args.router_checkpoint)
+    return QueryService(retriever, router=router, sparse_mode=args.sparse_mode), llm
 
 
 if __name__ == "__main__":

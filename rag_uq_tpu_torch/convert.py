@@ -68,3 +68,16 @@ def bm25_device_state(
         else:
             out[name] = value
     return out
+
+
+def load_encoder(embedder, params: Mapping[str, Any]):
+    """Copy a flax ``EncoderModel`` tree (``{"params": ...}`` or its inside)
+    into a ``TransformerEmbedder``; returns it."""
+    embedder.load_params(params)
+    return embedder
+
+
+def load_tiny_lm(lm, params: Mapping[str, Any]):
+    """Copy a flax ``DecoderModel`` parameter tree into a ``TinyLM``; returns it."""
+    lm.load_params(params)
+    return lm

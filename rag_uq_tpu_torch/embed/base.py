@@ -35,8 +35,24 @@ def get_embedder(config: EmbedderConfig, device: DeviceLike = "cuda") -> Embedde
             device=device,
         )
     if config.kind == "encoder":
-        raise NotImplementedError(
-            "the transformer encoder embedder is not ported yet; it waits "
-            "for a later slice"
+        from rag_uq_tpu_torch.embed.encoder import EncoderConfig, TransformerEmbedder
+
+        if config.checkpoint_path:
+            from rag_uq_tpu_torch.embed.train import load_encoder_checkpoint
+
+            return load_encoder_checkpoint(config.checkpoint_path, device=device)
+        # A seeded torch init: JAX's PRNGKey stream cannot be reproduced in
+        # torch, so the weights differ from the JAX embedder's for one seed.
+        return TransformerEmbedder(
+            EncoderConfig(
+                dim=config.dim,
+                num_layers=config.encoder_layers,
+                num_heads=config.encoder_heads,
+                mlp_dim=config.encoder_mlp_dim,
+                max_seq_len=config.max_seq_len,
+                vocab_buckets=config.vocab_hash_buckets,
+            ),
+            seed=config.seed,
+            device=device,
         )
     raise ValueError(f"Unknown embedder kind: {config.kind!r}")

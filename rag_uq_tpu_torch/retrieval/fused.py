@@ -119,8 +119,31 @@ def _router_head_select(
     rank every other member after it in fixed-fusion order. Returned scores
     are the max-normalized fixed-fusion scores; the order is the policy's.
     """
-    neg = float("-inf")
     m = positions.shape[-1]
+    head, gated, fused_s = router_head_scores(
+        bm25_scores, dense_scores, live, w, router_module)
+    # Rank keys: head members take 0..w-1 by gated score, every other member
+    # w + its fused rank; dead columns sink.
+    rank_in_head = _argsort(_argsort(-gated))
+    rank_fused = _argsort(_argsort(-fused_s))
+    key = (w + rank_fused).scatter(-1, head, rank_in_head)
+    key = torch.where(live, key, 2 * m + w)
+    sel_k = _argsort(key)[..., :k]
+    out_pos = torch.gather(positions, -1, sel_k)
+    out_vals = torch.gather(fused_s, -1, sel_k)
+    out_live = torch.gather(live, -1, sel_k)
+    return torch.where(out_live, out_vals, 0.0), torch.where(out_live, out_pos, -1)
+
+
+def router_head_scores(
+    bm25_scores: torch.Tensor, dense_scores: torch.Tensor, live: torch.Tensor,
+    w: int, router_module: RouterModule,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router's head over a merged pool: (head columns [B, w] in
+    fixed-fusion order, their gated scores [B, w], every column's
+    max-normalized fixed-fusion score [B, M], -inf where dead)."""
+    neg = float("-inf")
+    m = bm25_scores.shape[-1]
     b_live = torch.where(live, bm25_scores, neg)
     d_live = torch.where(live, dense_scores, neg)
     max_b = b_live.amax(dim=-1, keepdim=True).clamp(min=1e-12)
@@ -140,17 +163,7 @@ def _router_head_select(
     hd = torch.where(h_live, torch.gather(dense_scores, -1, head), 0.0)
     weights = router_module(hb, hd)
     gated = torch.where(h_live, fuse_hybrid(router_module.config, weights, hb, hd), neg)
-    # Rank keys: head members take 0..w-1 by gated score, every other member
-    # w + its fused rank; dead columns sink.
-    rank_in_head = _argsort(_argsort(-gated))
-    rank_fused = _argsort(_argsort(-fused_s))
-    key = (w + rank_fused).scatter(-1, head, rank_in_head)
-    key = torch.where(live, key, 2 * m + w)
-    sel_k = _argsort(key)[..., :k]
-    out_pos = torch.gather(positions, -1, sel_k)
-    out_vals = torch.gather(fused_s, -1, sel_k)
-    out_live = torch.gather(live, -1, sel_k)
-    return torch.where(out_live, out_vals, 0.0), torch.where(out_live, out_pos, -1)
+    return head, gated, fused_s
 
 
 def dense_pool(

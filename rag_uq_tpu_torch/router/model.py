@@ -7,8 +7,9 @@ the EMA score statistics (or the batch's, until they are initialized), the
 final ``Linear(1)`` and a sigmoid. ``fuse_hybrid`` turns gate weights into
 rankable scores. The ``binary`` policy's mean runs over all columns, dead
 ones included (``router/model.py:79``), as the reference does.
-``RetrievalRouter`` adds ``hybrid_rerank`` and ``get_routing_decision``.
-Training waits for a later slice.
+``RetrievalRouter`` adds ``hybrid_rerank`` and ``get_routing_decision``;
+``router/train.py::load_router_checkpoint`` loads a trained one. Training
+waits for a later slice.
 """
 
 from __future__ import annotations
@@ -145,8 +146,14 @@ class RetrievalRouter:
         self, config: Optional[RouterConfig] = None, seed: int = 0,
         device: DeviceLike = "cuda",
     ):
-        self.config = config or RouterConfig()
         self.device = resolve_device(device)
+        self._rebuild(config or RouterConfig(), seed)
+
+    def _rebuild(self, config: RouterConfig, seed: int = 0) -> None:
+        """(Re)build the architecture with fresh weights in place, so a
+        holder of this object sees a checkpoint of another architecture
+        (``router/train.py::load_router_checkpoint``)."""
+        self.config = config
         self.module = RouterModule(self.config)
         gen = torch.Generator().manual_seed(seed)
         with torch.no_grad():

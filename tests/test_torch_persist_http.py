@@ -18,6 +18,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 os.environ.setdefault(
     "RAG_UQ_TPU_TORCH_BUILD_DIR", os.path.join(tempfile.gettempdir(), "rag_uq_tpu_torch_build")
@@ -318,13 +319,75 @@ def test_http_twotier_service_ingest_then_search():
         thread.join(timeout=10)
 
 
-@pytest.mark.parametrize("flag,item", [("--encoder-checkpoint", "A.4"),
-                                       ("--lm-checkpoint", "A.6"),
-                                       ("--router-checkpoint", "A.7")])
-def test_main_names_the_roadmap_item_of_unported_checkpoints(capsys, flag, item):
-    with pytest.raises(SystemExit):
-        serve_mod.main([flag, "models/x.msgpack", "--device", "cpu"])
-    assert item in capsys.readouterr().err
+CHECKPOINT_FLAGS = {
+    "--encoder-checkpoint": "models/encoder/encoder.msgpack",
+    "--lm-checkpoint": "models/tiny_lm/tiny_lm.msgpack",
+    "--router-checkpoint": "runs/demo_full_r4/router/best_router.msgpack",
+}
+
+
+@pytest.mark.parametrize("flag", list(CHECKPOINT_FLAGS))
+def test_main_names_the_roadmap_item_of_unported_checkpoints(tmp_path, monkeypatch, flag):
+    """Each checkpoint flag (once refused, before its module was ported)
+    now loads its in-repo checkpoint on the CPU, with the weights the JAX
+    loader reads from the same file."""
+    import jax
+
+    from rag_uq_tpu.embed.train import load_encoder_checkpoint as jax_load_encoder
+    from rag_uq_tpu.llm.train import load_lm_checkpoint as jax_load_lm
+    from rag_uq_tpu.router.model import RetrievalRouter as JaxRouter
+    from rag_uq_tpu.router.train import RouterTrainer
+    from rag_uq_tpu_torch.convert import load_encoder, load_router, load_tiny_lm
+    from rag_uq_tpu_torch.embed.encoder import TransformerEmbedder
+    from rag_uq_tpu_torch.llm.tiny_lm import TinyLM
+    from rag_uq_tpu_torch.router.model import RetrievalRouter
+
+    seen = {}
+
+    class Stub:
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    def capture(service, llm=None, **kw):
+        seen.update(service=service, llm=llm, **kw)
+        return Stub()
+
+    monkeypatch.setattr(serve_mod, "serve_http", capture)
+    args = {"--encoder-checkpoint": "", "--lm-checkpoint": "", flag: CHECKPOINT_FLAGS[flag]}
+    argv = ["--bm25-path", str(tmp_path / "bm25.json"), "--dense-dir", str(tmp_path / "dense"),
+            "--device", "cpu"]
+    for name, value in args.items():
+        argv += [name, value]
+    serve_mod.main(argv)
+    path = CHECKPOINT_FLAGS[flag]
+    to_np = lambda tree: jax.tree.map(np.asarray, tree)
+    if flag == "--encoder-checkpoint":
+        loaded = seen["service"].retriever.dense_index.embedder
+        ref = jax_load_encoder(path)
+        expected = load_encoder(TransformerEmbedder(loaded.config, device="cpu"), to_np(ref.params))
+        assert vars(loaded.config) == vars(ref.config) and seen["llm"] is None
+    elif flag == "--lm-checkpoint":
+        loaded = seen["llm"]
+        ref = jax_load_lm(path)
+        expected = load_tiny_lm(TinyLM(loaded.config, device="cpu"), to_np(ref.params))
+        assert vars(loaded.config) == vars(ref.config)
+    else:
+        loaded = seen["service"].router
+        ref = JaxRouter()
+        RouterTrainer(ref).load_checkpoint(path)
+        expected = load_router(RetrievalRouter(loaded.config, device="cpu"), to_np(ref.params),
+                               to_np(ref.stats))
+        assert vars(loaded.config) == vars(ref.config)
+        assert loaded.trained_num_passages == ref.trained_num_passages == 20
+    module = (lambda obj: obj.module) if flag == "--router-checkpoint" else (lambda obj: obj.model)
+    ours_state, ref_state = module(loaded).state_dict(), module(expected).state_dict()
+    assert list(ours_state) == list(ref_state) and ours_state
+    for key, value in ref_state.items():
+        assert torch.equal(ours_state[key], value), key
+    seen["service"].close()
 
 
 def test_main_serves_a_saved_index(tmp_path, monkeypatch):
@@ -351,5 +414,6 @@ def test_main_serves_a_saved_index(tmp_path, monkeypatch):
 
     monkeypatch.setattr(serve_mod.ThreadingHTTPServer, "serve_forever", serve_one)
     serve_mod.main(["--bm25-path", bm25_path, "--dense-dir", dense_dir, "--port", "0",
-                    "--sparse-mode", "twotier", "--device", "cpu"])
+                    "--sparse-mode", "twotier", "--device", "cpu",
+                    "--encoder-checkpoint", "", "--lm-checkpoint", ""])
     assert seen["results"][0][0]["doc_id"] == "3"
