@@ -72,13 +72,36 @@ Phases, each printing one line "phase <name> ok <seconds>":
            MC confidence for 16 questions x 10 samples in one generate call,
            twice with one seed (same answers); the demo calibration set's
            conformal threshold and p-values against numpy; generate and
-           /answer round-trip times.
+           /answer round-trip times;
+  train    the training path on the demo run's data: the heap kernel
+           against its plain twin at the router data path's shape (B = 512,
+           k = 50 over the 5,000 live D = 256 rows); cli/train_router.py's
+           prepare_training_data over nq.jsonl rows [1500, 3000) (90/10)
+           and train_router at the demo's pool7 configuration (hidden 64,
+           2 layers, dropout 0.1) with TrainConfig's defaults: the loss
+           falls, validation hit@1 >= 0.80, final_router.msgpack reloads to
+           the same weights; a step under torch.profiler; cli/
+           train_encoder.py's train_encoder from a random init at the demo
+           encoder's configuration, 200 steps at batch 256: the mean loss of
+           the last 20 steps below the first 20's, held-out recall@10 (the
+           heap kernel) above the untrained encoder's, the checkpoint
+           reloads; TinyLMTrainer warm started from models/tiny_lm_r5 at its
+           recipe (batch 64 x 1,024 bytes): the training forward against the
+           KV-cached decode at the last prompt position of 16 rows (mean
+           |logit diff| < 0.1, 90% same argmax), step 1 (learning rate 0)
+           moves nothing, 30 steps at 2e-4 lower one fixed batch's loss,
+           step time, tokens/s, TFLOP/s, peak memory and a profiled step's
+           idle share; fit_qa, the exported sampler answering 4 prompts,
+           the checkpoint reloading; and cli/train_lm.py's train_extractor
+           at a small size.
 
-Each of the five serving paths runs with the kernel's launch counts set to 0
-just before it and fails if the dense kernel was not launched in it (the
-persist path also if the large-k kernels were not). Then one JSON line
-{"kernels": [...]}, a row for the heap kernel and one for the large-k
-kernels, and, last, {"ok": true, "device": ...}.
+Each of the five serving paths and the two kernel paths of the train phase
+runs with the kernel's launch counts set to 0 just before it and fails if
+the dense kernel was not launched in it (the persist path also if the
+large-k kernels were not). Then every number the train phase recorded, one
+"train <key> <value>" line each, one JSON line {"kernels": [...]}, a row for
+the heap kernel and one for the large-k kernels, and, last,
+{"ok": true, "device": ...}.
 A watchdog dumps every thread's stack and exits non-zero if the run hangs.
 Needs no network; imports nothing of JAX.
 """
@@ -90,6 +113,7 @@ import contextlib
 import faulthandler
 import itertools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -103,29 +127,35 @@ import numpy as np
 import torch
 
 from rag_uq_tpu_torch.cli import serve as serve_mod
+from rag_uq_tpu_torch.cli import train_encoder as train_encoder_cli
+from rag_uq_tpu_torch.cli import train_lm as train_lm_cli
+from rag_uq_tpu_torch.cli import train_router as train_router_cli
 from rag_uq_tpu_torch.cli.bench_sharded import tie_aware_agreement
 from rag_uq_tpu_torch.cli.evaluate import build_qa_prompt
 from rag_uq_tpu_torch.cli.serve import QueryService, serve_http
 from rag_uq_tpu_torch.core.config import (
-    BM25Config, DenseIndexConfig, EmbedderConfig, router_recipe_v2,
+    BM25Config, DenseIndexConfig, EmbedderConfig, RouterConfig, TrainConfig, router_recipe_v2,
 )
 from rag_uq_tpu_torch.core.types import Document
-from rag_uq_tpu_torch.embed.encoder import TransformerEmbedder
+from rag_uq_tpu_torch.embed.encoder import EncoderConfig, TransformerEmbedder
 from rag_uq_tpu_torch.embed.hash_embed import Sha256Embedder
-from rag_uq_tpu_torch.embed.train import load_encoder_checkpoint
+from rag_uq_tpu_torch.embed.train import EncoderTrainConfig, load_encoder_checkpoint
 from rag_uq_tpu_torch.eval.metrics import exact_match
 from rag_uq_tpu_torch.index.dense import DenseIndex
-from rag_uq_tpu_torch.llm.tiny_lm import TinyLM
-from rag_uq_tpu_torch.llm.train import load_lm_checkpoint
+from rag_uq_tpu_torch.llm.tiny_lm import TinyLM, TinyLMConfig
+from rag_uq_tpu_torch.llm.train import (
+    LMTrainConfig, TinyLMTrainer, encode_qa_examples, load_lm_checkpoint,
+)
 from rag_uq_tpu_torch.native import binding as native_binding
 from rag_uq_tpu_torch.ops import cosine_topk as ck
 from rag_uq_tpu_torch.retrieval import fused as fused_mod
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever
 from rag_uq_tpu_torch.router.model import RetrievalRouter
-from rag_uq_tpu_torch.router.train import load_router_checkpoint
+from rag_uq_tpu_torch.router.train import RouterTrainer, load_router_checkpoint
 from rag_uq_tpu_torch.text.tokenize import fnv1a_64
 from rag_uq_tpu_torch.uq.conformal import ConformalRAG, conformal_p_value_device
 from rag_uq_tpu_torch.uq.mc import MCDropoutConfidence
+from rag_uq_tpu_torch.utils.checkpoint import load_flax_checkpoint
 
 WATCHDOG_S = 840  # well inside the 1200 s a run may take
 # bench.py's shape.
@@ -146,6 +176,13 @@ DEMO_LM = Path("models/tiny_lm_r5/tiny_lm.msgpack")
 FIXTURE = Path("tests/data/torch_answer_fixture.json")
 N_RECALL, N_ANSWER, N_PER_PASSAGE, N_MC, MC_SAMPLES = 500, 32, 8, 16, 10
 MIN_DENSE_RECALL, EM_SLACK, MIN_GREEDY_SAME = 0.7, 0.1, 28
+# The train phase: run_pipeline's fit tail of nq.jsonl for the router (after
+# its 500 calibration and 1,000 test rows), its pool width and batch; the
+# encoder's steps; TinyLM's recipe (models/tiny_lm_r5) and the bf16 bound of
+# tests/test_torch_tiny_lm.py on the training forward against the decode.
+ROUTER_ROWS, ROUTER_POOL, ROUTER_DATA_BATCH, MIN_ROUTER_HIT = (1500, 3000), 20, 512, 0.80
+ENCODER_STEPS = 200
+LM_BATCH, LM_SEQ, LM_LR, LM_STEPS, LM_CHECK_ROWS, LM_LOGIT_BOUND = 64, 1024, 2e-4, 30, 16, 0.1
 
 
 @contextlib.contextmanager
@@ -1256,6 +1293,323 @@ def check_conformal(lm, device: str) -> dict:
     return {"n": n, "threshold": threshold, "numpy_threshold": ref, "p_value_err": p_err}
 
 
+def instances(module, name: str):
+    """Patch ``module.name`` (a class) so each instance it makes is kept:
+    returns (the patcher, the list of instances)."""
+    cls, made = getattr(module, name), []
+
+    def make(*args, **kwargs):
+        made.append(cls(*args, **kwargs))
+        return made[-1]
+
+    return mock.patch.object(module, name, make), made
+
+
+def same_state(a: torch.nn.Module, b: torch.nn.Module) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k].to(sa[k].device)) for k in sa)
+
+
+def profiled(fn, top: int = 0):
+    """fn() under torch.profiler: (host seconds, device-busy seconds, device
+    ops, the ``top`` kernel names by summed device seconds) of the call, the
+    device's kernels and copies summed."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        _, wall = timed(fn)
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in on_device:
+        name = kernel_name(e.name)
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() * 1e-6
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return wall, sum(by_name.values()), len(on_device), heavy
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's name cut to its function and innermost functor,
+    e.g. "vectorized_elementwise_kernel/MulFunctor"."""
+    head = re.sub(r"^void ", "", name.replace("(anonymous namespace)::", "")).split("(")[0]
+    base = head.split("<")[0].split("::")[-1][:80]
+    inner = re.findall(r"(\w+(?:Functor|Op|_functor|Epilogue|_cuda))\b", head)
+    return f"{base}/{inner[-1]}" if inner else base
+
+
+def train_router_path(retriever, qa_rows, tmp: Path, device: str) -> dict:
+    """cli/train_router.py on the card: data from the demo retriever (the
+    heap kernel's dense pool), then the pool7 router of the demo run."""
+    split = int(0.9 * len(qa_rows))
+    ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+    (train, val), t_prep = timed(lambda: (
+        train_router_cli.prepare_training_data(retriever, qa_rows[:split], ROUTER_POOL),
+        train_router_cli.prepare_training_data(retriever, qa_rows[split:], ROUTER_POOL)))
+    launches = ck.cuda_cosine_topk.launches
+    if launches < 1 or train[0].shape != (split, ROUTER_POOL) or not np.isfinite(train[0]).all():
+        raise AssertionError(f"router data: launches {launches}, shape {train[0].shape}")
+    config = RouterConfig(hidden_dim=64, num_layers=2, dropout=0.1, feature_set="pool7")
+    patch, routers = instances(train_router_cli, "RetrievalRouter")
+    with patch:
+        results = train_router_cli.train_router(
+            train, val, router_config=config,
+            train_config=TrainConfig(checkpoint_dir=str(tmp / "router")),
+            output_dir=str(tmp / "router"), device=device)
+    router = routers[0]
+    meta = json.loads((tmp / "router/final_router.msgpack.json").read_text())
+    losses = meta["train_losses"]
+    reloaded = RetrievalRouter(device=device)
+    load_router_checkpoint(reloaded, str(tmp / "router/final_router.msgpack"))
+    steps = results["epochs_trained"] * -(-split // TrainConfig().batch_size)
+    # One step alone under the profiler (a fresh trainer on a copy).
+    probe = RouterTrainer(RetrievalRouter(config, device=device),
+                          config=TrainConfig(checkpoint_dir=str(tmp / "probe")))
+    batch = tuple(a[:TrainConfig().batch_size] for a in train)
+    for _ in range(3):
+        probe.train_epoch(batch)
+    wall, busy, ops, _ = profiled(lambda: [probe.train_epoch(batch) for _ in range(20)])
+    out = {"examples": [split, len(qa_rows) - split], "prep_s": t_prep, "kernel_launches": launches,
+           "epochs": results["epochs_trained"], "wall_s": results["wall_clock_seconds"],
+           "epoch_s": results["wall_clock_seconds"] / results["epochs_trained"],
+           "step_ms": results["wall_clock_seconds"] / steps * 1e3,
+           "profiled_step_ms": wall / 20 * 1e3, "busy_step_ms": busy / 20 * 1e3,
+           "ops_per_step": ops / 20, "idle_share": 1.0 - busy / wall,
+           "val_hit_at_1": results["val_hit_at_1"], "first_loss": losses[0],
+           "final_loss": losses[-1]}
+    log(f"  router data: {split} + {len(qa_rows) - split} questions (nq.jsonl rows "
+        f"{ROUTER_ROWS[0]}-{ROUTER_ROWS[1]}) scored in {t_prep:.3f} s, heap kernel launches "
+        f"{launches}")
+    log(f"  router training: {out['epochs']} epochs in {out['wall_s']:.2f} s = "
+        f"{out['epoch_s']:.3f} s an epoch, {out['step_ms']:.3f} ms a step (validation and "
+        f"checkpoints included); train loss {losses[0]:.4f} -> {losses[-1]:.4f}; val hit@1 "
+        f"{out['val_hit_at_1']:.4f} (gate {MIN_ROUTER_HIT})")
+    log(f"  router step under torch.profiler (B = 16): {out['profiled_step_ms']:.3f} ms on the "
+        f"host clock, device busy {out['busy_step_ms']:.4f} ms in {out['ops_per_step']:.1f} "
+        f"kernels and copies, idle share {out['idle_share']:.1%}")
+    if not losses[-1] < losses[0] or out["val_hit_at_1"] < MIN_ROUTER_HIT:
+        raise AssertionError(f"router: losses {losses[0]} -> {losses[-1]}, hit@1 "
+                             f"{out['val_hit_at_1']}")
+    if not same_state(router.module, reloaded.module) or reloaded.config != config:
+        raise AssertionError("router: final_router.msgpack reloads to other weights")
+    return out
+
+
+def train_encoder_path(corpus, qa_rows, tmp: Path, device: str) -> dict:
+    """cli/train_encoder.py on the card: random init at the demo encoder's
+    configuration, 200 steps at batch 256, recall through the heap kernel."""
+    config = EncoderConfig(dim=ENCODER_DIM, num_layers=2, num_heads=8, mlp_dim=1024,
+                           max_seq_len=64, vocab_buckets=1 << 14)
+    patch, trainers = instances(train_encoder_cli, "ContrastiveTrainer")
+    ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+    with patch:
+        results = train_encoder_cli.train_encoder(
+            corpus, qa_rows, output_dir=str(tmp / "encoder"), encoder_config=config,
+            train_config=EncoderTrainConfig(total_steps=ENCODER_STEPS, batch_size=256),
+            device=device)
+    launches = ck.cuda_cosine_topk.launches
+    trainer = trainers[0]
+    losses = np.asarray(trainer.losses)
+    recall = results["dense_recall@10"]
+    reloaded = load_encoder_checkpoint(str(tmp / "encoder/encoder.msgpack"), device=device)
+    if reloaded.config != config or not same_state(trainer.model, reloaded.model):
+        raise AssertionError("encoder.msgpack reloads to other weights")
+    # The step alone: 21 more steps of fit, timed between the ends of steps
+    # (each ends in a sync for its loss), so the hashing before them is out.
+    stamps: list = []
+    trainer.fit([q["question"] for q in qa_rows[:5120]], [q["context"] for q in qa_rows[:5120]],
+                steps=21, log_every=0, on_step=lambda s, loss: stamps.append(time.perf_counter()))
+    step_s = float(np.median(np.diff(stamps)))
+    batch = trainer.encode_pairs([q["question"] for q in qa_rows[:256]],
+                                 [q["context"] for q in qa_rows[:256]])
+    wall, busy, ops, heavy = profiled(lambda: trainer.train_step(*batch), top=5)
+    out = {"pairs": results["n_train_pairs"], "heldout": results["n_heldout"],
+           "steps": results["steps"], "first20_loss": float(losses[:20].mean()),
+           "last20_loss": float(losses[ENCODER_STEPS - 20 : ENCODER_STEPS].mean()),
+           "recall_trained": recall["trained_encoder"],
+           "recall_untrained": recall["untrained_encoder"], "recall_ngram": recall["ngram_hash"],
+           "recall_sha256": recall["sha256_reference_fallback"], "kernel_launches": launches,
+           "train_s": results["train_seconds"], "step_ms": step_s * 1e3,
+           "pairs_per_s": 256 / step_s, "profiled_step_ms": wall * 1e3, "busy_ms": busy * 1e3,
+           "ops_per_step": ops, "idle_share": 1.0 - busy / wall,
+           "heaviest_ms": {name: t * 1e3 for name, t in heavy}}
+    log(f"  encoder: {out['pairs']} training pairs, {out['heldout']} held-out questions; "
+        f"{ENCODER_STEPS} steps at batch 256: mean loss of the first 20 {out['first20_loss']:.4f},"
+        f" of the last 20 {out['last20_loss']:.4f}")
+    log(f"  encoder recall@10 (heap kernel, launches {launches}): trained "
+        f"{out['recall_trained']:.4f}, untrained {out['recall_untrained']:.4f}, ngram_hash "
+        f"{out['recall_ngram']:.4f}, sha256 {out['recall_sha256']:.4f}")
+    log(f"  encoder step: median {out['step_ms']:.3f} ms = {out['pairs_per_s']:.1f} pairs/s "
+        f"(20 steps of fit, batch selection included); train_encoder's training span "
+        f"{out['train_s']} s (hashing and the untrained recall included)")
+    log(f"  encoder step under torch.profiler: {out['profiled_step_ms']:.3f} ms on the host "
+        f"clock, device busy {out['busy_ms']:.3f} ms in {ops} kernels and copies, idle share "
+        f"{out['idle_share']:.1%}; heaviest kernels (ms): "
+        f"{[(n, round(t, 3)) for n, t in out['heaviest_ms'].items()]}")
+    if not out["last20_loss"] < out["first20_loss"] or launches < 1:
+        raise AssertionError(f"encoder losses {out['first20_loss']} -> {out['last20_loss']}")
+    if not out["recall_trained"] > out["recall_untrained"]:
+        raise AssertionError(f"encoder recall trained {out['recall_trained']} <= untrained "
+                             f"{out['recall_untrained']}")
+    return out
+
+
+def lm_step_flop(cfg) -> float:
+    """The operations of one TinyLM training step (forward and backward) at
+    batch LM_BATCH and sequence LM_SEQ: 6 per weight of every product per
+    token, and the attention's two products (2 B H L^2 Dh each) times 3."""
+    d, f = cfg.dim, cfg.mlp_dim
+    weights = cfg.num_layers * (4 * d * d + 2 * d * f) + d * 258
+    tokens = LM_BATCH * LM_SEQ
+    attention = cfg.num_layers * 2 * (2 * LM_BATCH * LM_SEQ * LM_SEQ * d) * 3
+    return 6.0 * weights * tokens + attention
+
+
+def train_lm_path(qa_rows, corpus_texts, fixture, tmp: Path, device: str) -> dict:
+    """TinyLMTrainer on the card at models/tiny_lm_r5's full recipe, warm
+    started from it; then a small cli/train_lm.py run."""
+    meta = json.loads(Path(str(DEMO_LM) + ".json").read_text())
+    model_cfg = TinyLMConfig(**meta["model_config"])
+    trainer = TinyLMTrainer(model_cfg, LMTrainConfig(
+        learning_rate=LM_LR, warmup_steps=1, total_steps=meta["train_config"]["total_steps"],
+        batch_size=LM_BATCH, seq_len=LM_SEQ), device=device)
+    trainer.load_params(load_flax_checkpoint(str(DEMO_LM)))
+    data, masks = encode_qa_examples(qa_rows, LM_SEQ, seed=0, distractor_texts=corpus_texts,
+                                     min_distractors=1, max_distractors=3)
+    batch, mask = data[:LM_BATCH], masks[:LM_BATCH]
+
+    # The training forward against the serving (KV-cached) forward at step 0.
+    sampler = trainer.export_sampler()
+    diffs, same = [], 0
+    with torch.no_grad():
+        for row in range(LM_CHECK_ROWS):
+            last = int(np.flatnonzero(mask[row])[0])  # the last prompt position
+            tok = torch.from_numpy(batch[row : row + 1, : last + 1]).to(device)
+            full = trainer.model(tok)[0, -1]
+            cache = sampler.model.init_cache(1)
+            sampler.model(tok[:, :-1], cache, logits=False)
+            cached = sampler.model(tok[:, -1:], cache)[0, -1]
+            diffs.append(float((full - cached).abs().mean()))
+            same += int(full.argmax() == cached.argmax())
+    log(f"  TinyLM training forward vs KV-cached decode at the last prompt position of "
+        f"{LM_CHECK_ROWS} rows: mean |logit diff| {np.mean(diffs):.5f} (max over rows "
+        f"{max(diffs):.5f}), argmax equal {same}/{LM_CHECK_ROWS}")
+    if np.mean(diffs) >= LM_LOGIT_BOUND or same < 0.9 * LM_CHECK_ROWS:
+        raise AssertionError(f"TinyLM training forward vs decode: {np.mean(diffs)}, {same}")
+
+    flop = lm_step_flop(model_cfg)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for step in range(LM_STEPS + 1):
+        loss, t = timed(lambda: trainer.train_step(batch, mask))
+        losses.append(loss)
+        times.append(t)
+        if step == 0 and not all(torch.equal(a, b) for a, b in zip(before, trainer.model.parameters())):
+            raise AssertionError("TinyLM step 1 (learning rate 0) moved the parameters")
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, ops, heavy = profiled(lambda: trainer.train_step(batch, mask), top=8)
+    step_s = float(np.median(times[1:]))
+    out = {"losses": [losses[0], losses[-1]], "step_ms": step_s * 1e3,
+           "first_step_ms": times[0] * 1e3, "tokens_per_s": LM_BATCH * LM_SEQ / step_s,
+           "step_tflop": flop / 1e12, "tflop_per_s": flop / step_s / 1e12,
+           "bound_ms": flop / PEAK_BF16_FLOPS * 1e3, "peak_memory_gib": peak / 2**30,
+           "profiled_step_ms": wall * 1e3, "busy_ms": busy * 1e3, "ops_per_step": ops,
+           "idle_share": 1.0 - busy / wall,
+           "heaviest_ms": {name: t * 1e3 for name, t in heavy}}
+    log(f"  TinyLM fine-tune ({model_cfg.dim}-d, {model_cfg.num_layers} layers, batch "
+        f"{LM_BATCH} x {LM_SEQ}, one fixed batch, warmup 1, lr {LM_LR}): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} in {LM_STEPS} steps; step 1 left the parameters "
+        f"as they were")
+    log(f"  TinyLM step: median {out['step_ms']:.2f} ms (first {out['first_step_ms']:.2f}) = "
+        f"{out['tokens_per_s']:.0f} tokens/s; {out['step_tflop']:.3f} TFLOP counted a step = "
+        f"{out['tflop_per_s']:.1f} TFLOP/s ({out['tflop_per_s'] * 1e12 / PEAK_BF16_FLOPS:.1%} "
+        f"of the bf16 peak, bound {out['bound_ms']:.2f} ms); peak memory "
+        f"{out['peak_memory_gib']:.2f} GiB")
+    log(f"  TinyLM step under torch.profiler: {out['profiled_step_ms']:.2f} ms on the host "
+        f"clock, device busy {out['busy_ms']:.2f} ms in {ops} kernels and copies, idle share "
+        f"{out['idle_share']:.1%}; heaviest kernels (ms): "
+        f"{[(n, round(t, 2)) for n, t in out['heaviest_ms'].items()]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"TinyLM: {LM_STEPS} steps on one batch did not lower its loss")
+
+    qa_losses = trainer.fit_qa(qa_rows[:LM_BATCH * 4], steps=2, seq_len=LM_SEQ)
+    lm = trainer.export_sampler()
+    prompts = [build_qa_prompt(q, c) for q, c in
+               zip(fixture["questions"][:4], fixture["contexts"][:4])]
+    answers = lm.generate_batch(prompts, [0.1] * 4, [1e-6] * 4, max_tokens=fixture["max_tokens"])
+    trainer.save_checkpoint(str(tmp / "lm/tiny_lm.msgpack"))
+    reloaded = load_lm_checkpoint(str(tmp / "lm/tiny_lm.msgpack"), device=device)
+    if len(answers) != 4 or not all(isinstance(a, str) for a in answers) or not np.isfinite(qa_losses).all():
+        raise AssertionError(f"TinyLM after fine-tuning: {answers} {qa_losses}")
+    if not same_state(lm.model, reloaded.model):
+        raise AssertionError("TinyLM checkpoint reloads to other weights")
+    log(f"  TinyLM fit_qa 2 steps (losses {qa_losses[-2]:.4f}, {qa_losses[-1]:.4f}); the "
+        f"exported sampler answers the fixture's first 4 prompts {answers}; the checkpoint "
+        f"reloads to the same weights")
+
+    # cli/train_lm.py end to end at a small size (one world, a few steps).
+    results, t_cli = timed(lambda: train_lm_cli.train_extractor(
+        output_dir=str(tmp / "lm_cli"), n_worlds=1, articles_per_world=60, steps=3,
+        batch_size=4, seq_len=256, dim=64, num_layers=1, eval_n=8, device=device))
+    if results["steps"] != 3 or not 0.0 <= results["unseen_world_eval"]["exact_match"] <= 1.0:
+        raise AssertionError(f"train_extractor: {results}")
+    log(f"  cli/train_lm.py train_extractor (1 world, 3 steps, 64-d): {t_cli:.2f} s")
+    out["peak_memory_bytes"] = peak
+    return out
+
+
+def phase_train(fixture, device: str = "cuda") -> dict:
+    """The training path on the card: the heap kernel at the router data
+    path's shape, then router, encoder and TinyLM training through the
+    port's trainers and cli/train_* functions. (``device`` is "cuda" in
+    every run of this script.)"""
+    encoder = load_encoder_checkpoint(str(DEMO_ENCODER), device=device)
+    corpus = read_jsonl(RUN / "corpus.jsonl")
+    retriever = build_demo_index(encoder, corpus, device)
+    qa = read_jsonl(RUN / "nq.jsonl")
+    router_rows = qa[ROUTER_ROWS[0] : ROUTER_ROWS[1]]
+
+    index = retriever.dense_index
+    q = index.embed_queries([r["question"] for r in router_rows[:ROUTER_DATA_BATCH]])
+    kv, ki = ck.cuda_cosine_topk(index._emb, q, len(index), POOL)
+    pv, pi = ck.cosine_topk_plain(index._emb, q, len(index), POOL)
+    err = check_topk(kv, ki, pv, pi, f"train path B={len(q)} k={POOL} over {len(index)} live "
+                     f"rows D={ENCODER_DIM}", KERNEL_ATOL,
+                     lambda ids: torch.matmul(q[ids].to(index._emb.dtype).float(),
+                                              index._emb[: len(index)].float().T))
+    size, emb = len(index), index._emb
+    ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, size, POOL), reps=50)
+    plain_ms = cuda_ms(lambda: ck.cosine_topk_plain(emb, q, size, POOL), reps=5)
+    q16 = q.to(emb.dtype)
+    library_ms = cuda_ms(lambda: torch.topk(torch.matmul(q16, emb[:size].T), POOL), reps=50)
+    t_ops = 2.0 * len(q) * size * ENCODER_DIM / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (size * ENCODER_DIM * 2 + q.numel() * 4 + len(q) * POOL * 8) / PEAK_BYTES_S * 1e3
+    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log(f"  heap kernel at the router data path's shape (B = {len(q)}, k = {POOL}, "
+        f"{size} live D = {ENCODER_DIM} rows): max_abs_err {err:.3g}, tie-aware agreement 1.0; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    with tempfile.TemporaryDirectory() as tmp:
+        router = train_router_path(retriever, router_rows, Path(tmp), device)
+        del retriever, encoder, index, q
+        torch.cuda.empty_cache()
+        enc = train_encoder_path(corpus, qa, Path(tmp), device)
+        torch.cuda.empty_cache()
+        lm = train_lm_path(qa, [r["text"] for r in corpus], fixture, Path(tmp), device)
+    torch.cuda.empty_cache()
+    return {"kernel_max_abs_err": err, "kernel_timing": timing, "router": router, "encoder": enc,
+            "tiny_lm": lm}
+
+
+def flat_items(tree: dict, prefix: str = ""):
+    """(dotted key, value) for every leaf of nested dicts, in order."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from flat_items(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1282,13 +1636,21 @@ def main() -> int:
         persist_launches, large_launches = phase_persist(ctx)
     with phase("answer"):
         answer = phase_answer()
+    torch.cuda.empty_cache()
+    with phase("train"):
+        train = phase_train(json.loads(FIXTURE.read_text()))
+    for key, value in flat_items(train):
+        log(f"train {key} {value}")
     faulthandler.cancel_dump_traceback_later()
     row["launches"] = ctx["launches"]
     row["launches_by_path"] = {"scatter": ctx["launches"], "twotier": twotier_launches,
                                "ingest": ingest_launches, "persist_http": persist_launches,
                                "answer": answer["launches"],
-                               "answer_recall": answer["recall_launches"]}
+                               "answer_recall": answer["recall_launches"],
+                               "train_router_data": train["router"]["kernel_launches"],
+                               "train_encoder_recall": train["encoder"]["kernel_launches"]}
     row["answer_phase"] = {k: v for k, v in answer.items() if "launches" not in k}
+    row["train_phase"] = train
     large_row["launches"] = large_launches  # the persist path's k = 1000 searches
     row["bm25_pool_s"] = {"scatter": ctx["scatter_pool_s"], "twotier": ctx["twotier_pool_s"]}
     print(json.dumps({"kernels": [row, large_row]}), flush=True)

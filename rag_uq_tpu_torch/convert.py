@@ -1,17 +1,20 @@
-"""Carry parameters and state from the JAX package to the port.
+"""Carry parameters and state between the JAX package and the port.
 
-Every function takes numpy arrays (the caller turns JAX arrays, and bf16
-values, into numpy f32 first), so the port needs neither flax nor msgpack.
+The loaders take numpy arrays (the caller turns JAX arrays, and bf16
+values, into numpy f32 first), and the ``*_to_flax`` functions give the
+port's modules back as flax trees of numpy float32 arrays, so the port
+needs neither flax nor msgpack.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from rag_uq_tpu_torch.core.device import DeviceLike, resolve_device
+from rag_uq_tpu_torch.core.flax_nn import flax_tree, load_flax_tree
 from rag_uq_tpu_torch.router.model import STAT_NAMES, RetrievalRouter
 
 
@@ -21,24 +24,26 @@ def load_router(
     """Copy a flax ``RouterModule``'s ``params`` and ``stats`` into ``router``.
 
     flax names its layers ``Dense_0 .. Dense_{n-1}`` (the last is the output
-    layer) and stores kernels ``[in, out]``; ``nn.Linear`` stores
-    ``[out, in]``, so kernels are transposed.
+    layer) and ``BatchNorm_i``, and stores kernels ``[in, out]``;
+    ``nn.Linear`` stores ``[out, in]``, so kernels are transposed.
     """
-    module = router.module
-    layers = [*module.hidden, module.out]
-    if len(params) != len(layers):
-        raise ValueError(f"{len(params)} flax layers for {len(layers)} torch layers")
+    leaves = router.module.flax_params()
+    names = {path[0] for path, *_ in leaves}
+    if set(params) != names:
+        raise ValueError(f"flax layers {sorted(params)} != the router's {sorted(names)}")
+    load_flax_tree(leaves, params)
     with torch.no_grad():
-        for i, layer in enumerate(layers):
-            dense = params[f"Dense_{i}"]
-            kernel = np.asarray(dense["kernel"], dtype=np.float32)
-            if kernel.T.shape != tuple(layer.weight.shape):
-                raise ValueError(f"Dense_{i} kernel {kernel.shape} != {tuple(layer.weight.shape)}")
-            layer.weight.copy_(torch.tensor(kernel.T))
-            layer.bias.copy_(torch.tensor(np.asarray(dense["bias"], dtype=np.float32)))
         for name in STAT_NAMES:
-            getattr(module, name).fill_(float(np.asarray(stats[name])))
+            getattr(router.module, name).fill_(float(np.asarray(stats[name])))
     return router
+
+
+def router_to_flax(router: RetrievalRouter) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+    """The inverse of ``load_router``: (``params``, ``stats``) as flax trees
+    of float32 numpy arrays."""
+    module = router.module
+    stats = {name: np.asarray(float(getattr(module, name)), np.float32) for name in STAT_NAMES}
+    return flax_tree(module.flax_params()), stats
 
 
 def embedding_table(table: np.ndarray) -> torch.Tensor:
@@ -81,3 +86,15 @@ def load_tiny_lm(lm, params: Mapping[str, Any]):
     """Copy a flax ``DecoderModel`` parameter tree into a ``TinyLM``; returns it."""
     lm.load_params(params)
     return lm
+
+
+def encoder_to_flax(embedder) -> Dict[str, Any]:
+    """The inverse of ``load_encoder``: ``{"params": ...}`` of float32 numpy
+    arrays, as the JAX ``TransformerEmbedder.params``."""
+    return {"params": flax_tree(embedder.model.flax_params())}
+
+
+def tiny_lm_to_flax(lm) -> Dict[str, Any]:
+    """The inverse of ``load_tiny_lm``: the flax ``DecoderModel`` tree of
+    float32 numpy arrays."""
+    return flax_tree(lm.model.flax_params())

@@ -71,6 +71,32 @@ def router_recipe_v2() -> "RouterConfig":
 
 
 @dataclass
+class ChunkConfig:
+    """Corpus chunking (reference: prepare_corpus.py:28-34)."""
+
+    chunk_size: int = 200  # words
+    overlap: int = 50  # words
+    min_chunk_size: int = 50  # CHARACTERS (reference min_chunk_length)
+    max_chunk_chars: int = 2000  # characters
+
+
+@dataclass
+class TrainConfig:
+    """Router training loop (reference: router.py:346-365,419-426)."""
+
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    num_epochs: int = 50
+    batch_size: int = 16
+    early_stopping_patience: int = 10
+    grad_clip_norm: float = 1.0
+    plateau_factor: float = 0.5
+    plateau_patience: int = 3
+    checkpoint_dir: str = "models/router"
+    seed: int = 0
+
+
+@dataclass
 class BM25Config:
     """Okapi BM25 parameters (reference: streaming_index.py:100-105)."""
 

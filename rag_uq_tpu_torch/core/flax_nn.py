@@ -1,8 +1,13 @@
 """PyTorch layers with ``flax.linen``'s numerics, for the encoder and TinyLM.
 
 The JAX package's transformers are flax modules run at ``dtype="bfloat16"``
-with float32 parameters. flax casts each parameter to the compute dtype at
-every use, so these layers hold that cast once: the values are the same.
+with float32 parameters, which flax casts to the compute dtype at every
+use; gradients and optimizer updates land on the float32 values. These
+layers hold float32 parameters too. Under autograd they cast at every use,
+as flax does. Without autograd (serving, ``torch.no_grad``) they read a
+compute-dtype copy of each parameter, made once and made again only when
+the parameter changes (its version counter or storage moves: a load, an
+optimizer step, ``.to(device)``), so a decode step launches no casts.
 What flax does, and these layers repeat (flax 0.12.3):
 
 - ``Dense``: input and kernel in the compute dtype, the product rounded to
@@ -11,6 +16,7 @@ What flax does, and these layers repeat (flax 0.12.3):
 - ``LayerNorm`` (epsilon 1e-6): mean and ``E[x^2] - E[x]^2`` in float32
   (``use_fast_variance``), the normalization, scale and bias in float32,
   then a cast back to the compute dtype.
+- ``Embed``: the table cast to the compute dtype, then the rows taken.
 - ``gelu``: the tanh approximation, one rounded operation at a time with
   the constants rounded to the compute dtype, as ``jax.nn.gelu`` runs on a
   bf16 array.
@@ -18,7 +24,14 @@ What flax does, and these layers repeat (flax 0.12.3):
   compute dtype) before ``q k^T``; masked logits set to the dtype's most
   negative finite value, not -inf, so a row with every key masked stays
   finite; the softmax in the compute dtype with its sum taken in float32
-  (``jax.nn.softmax`` of a bf16 array).
+  (``jax.nn.softmax`` of a bf16 array), its max held out of the gradient
+  (``lax.stop_gradient``).
+
+Each layer lists its parameters as flax leaves (``flax_params``: the path
+in the flax tree, the parameter, the flax shape, and whether the flax leaf
+is the transpose), so one pair of functions, ``flax_tree`` and
+``load_flax_tree``, carries parameters, or optimizer moments of the same
+shapes, to and from flax trees.
 
 Random initialization draws from a ``torch.Generator`` at flax's scales
 (normal kernels with std 1/sqrt(fan_in), zero biases, unit LayerNorm
@@ -29,7 +42,7 @@ differ from a JAX init with the same seed.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +51,9 @@ from torch import nn
 from rag_uq_tpu_torch.utils.checkpoint import to_numpy_f32 as _f32
 
 LN_EPS = 1e-6
+
+# (path in the flax tree, parameter, flax shape, flax leaf is the transpose)
+FlaxLeaf = Tuple[Tuple[str, ...], nn.Parameter, Tuple[int, ...], bool]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -54,35 +70,86 @@ def _round_to(value: float, dtype: torch.dtype) -> float:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t.float())
 
 
-def _copy(dst: torch.Tensor, src) -> None:
-    src = torch.tensor(_f32(src))
-    if tuple(src.shape) != tuple(dst.shape):
-        raise ValueError(f"parameter shape {tuple(src.shape)} != {tuple(dst.shape)}")
-    dst.copy_(src.to(dst.dtype))
+def flax_leaves(module: nn.Module, prefix: Tuple[str, ...] = ()) -> List[FlaxLeaf]:
+    """``module.flax_params()`` with ``prefix`` put before every path."""
+    return [(prefix + path, p, shape, t) for path, p, shape, t in module.flax_params()]
 
 
-class Dense(nn.Module):
+def flax_tree(leaves: Sequence[FlaxLeaf],
+              value: Callable[[nn.Parameter], torch.Tensor] = lambda p: p) -> Dict[str, Any]:
+    """A nested dict of float32 numpy leaves in flax's layout, from
+    ``value(param)`` (the parameter itself, or an optimizer moment of its
+    shape) for every leaf."""
+    tree: Dict[str, Any] = {}
+    for path, p, shape, transpose in leaves:
+        t = value(p).detach().float().cpu()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray((t.T if transpose else t).reshape(shape).numpy())
+    return tree
+
+
+def load_flax_tree(leaves: Sequence[FlaxLeaf], tree: Dict[str, Any],
+                   target: Callable[[nn.Parameter], torch.Tensor] = lambda p: p) -> None:
+    """Copy a flax tree's leaves into ``target(param)`` for every leaf (the
+    parameter itself by default); raises on a missing leaf or a shape that
+    is not flax's."""
+    with torch.no_grad():
+        for path, p, shape, transpose in leaves:
+            node = tree
+            for key in path:
+                node = node[key]
+            src = _f32(node)
+            if tuple(src.shape) != tuple(shape):
+                raise ValueError(f"{'/'.join(path)}: shape {tuple(src.shape)} != flax's {shape}")
+            src = torch.tensor(src)
+            src = src.reshape(tuple(p.shape)[::-1]).T if transpose else src.reshape(p.shape)
+            dst = target(p)
+            dst.copy_(src.to(dst.dtype))
+
+
+class _CastAtUse(nn.Module):
+    """Float32 parameters read at ``self.dtype``: a cast under autograd, a
+    cached copy otherwise (see the module docstring)."""
+
+    dtype: torch.dtype
+
+    def _at_dtype(self, name: str) -> torch.Tensor:
+        p = getattr(self, name)
+        if p.dtype == self.dtype or (torch.is_grad_enabled() and p.requires_grad):
+            return p.to(self.dtype)
+        casts = self.__dict__.setdefault("_casts", {})
+        key = (p._version, p.data_ptr(), p.device)
+        hit = casts.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, p.detach().to(self.dtype))
+            casts[name] = hit
+        return hit[1]
+
+
+class Dense(_CastAtUse):
     """``flax.linen.Dense`` at ``dtype``."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
-        w = torch.randn((d_out, d_in), generator=gen) / math.sqrt(d_in)
-        self.weight = _param(w.to(dtype))
-        self.bias = _param(torch.zeros((d_out,), dtype=dtype))
+        self.weight = _param(torch.randn((d_out, d_in), generator=gen) / math.sqrt(d_in))
+        self.bias = _param(torch.zeros((d_out,)))
 
-    def load(self, tree) -> None:
-        """From a flax ``{"kernel": [in, out], "bias": [out]}`` tree."""
-        _copy(self.weight, _f32(tree["kernel"]).T)
-        _copy(self.bias, tree["bias"])
+    def flax_params(self) -> List[FlaxLeaf]:
+        d_out, d_in = self.weight.shape
+        return [(("kernel",), self.weight, (d_in, d_out), True),
+                (("bias",), self.bias, (d_out,), False)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.weight.t())
-        return y + self.bias
+        y = torch.matmul(x.to(self.dtype), self._at_dtype("weight").t())
+        return y + self._at_dtype("bias")
 
 
 class LayerNorm(nn.Module):
@@ -91,12 +158,12 @@ class LayerNorm(nn.Module):
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
-        self.scale = _param(torch.ones((dim,), dtype=torch.float32))
-        self.bias = _param(torch.zeros((dim,), dtype=torch.float32))
+        self.scale = _param(torch.ones((dim,)))
+        self.bias = _param(torch.zeros((dim,)))
 
-    def load(self, tree) -> None:
-        _copy(self.scale, tree["scale"])
-        _copy(self.bias, tree["bias"])
+    def flax_params(self) -> List[FlaxLeaf]:
+        dim = self.scale.shape[0]
+        return [(("scale",), self.scale, (dim,), False), (("bias",), self.bias, (dim,), False)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -108,19 +175,20 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
-class Embed(nn.Module):
+class Embed(_CastAtUse):
     """``flax.linen.Embed`` at ``dtype`` (the table cast to it)."""
 
     def __init__(self, num: int, dim: int, dtype: torch.dtype,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        self.embedding = _param((torch.randn((num, dim), generator=gen) / math.sqrt(dim)).to(dtype))
+        self.dtype = dtype
+        self.embedding = _param(torch.randn((num, dim), generator=gen) / math.sqrt(dim))
 
-    def load(self, tree) -> None:
-        _copy(self.embedding, tree["embedding"])
+    def flax_params(self) -> List[FlaxLeaf]:
+        return [(("embedding",), self.embedding, tuple(self.embedding.shape), False)]
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids.long()]
+        return self._at_dtype("embedding")[ids.long()]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -135,7 +203,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def softmax(w: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax`` over the last axis in ``w``'s dtype (sum in f32)."""
-    e = torch.exp(w - w.amax(dim=-1, keepdim=True))
+    e = torch.exp(w - w.amax(dim=-1, keepdim=True).detach())
     return e / e.float().sum(dim=-1, keepdim=True).to(w.dtype)
 
 
@@ -158,13 +226,16 @@ class MultiHeadAttention(nn.Module):
         self.out = Dense(dim, dim, dtype, gen)
         self.q_scale = _round_to(math.sqrt(self.head_dim), dtype)
 
-    def load(self, tree) -> None:
+    def flax_params(self) -> List[FlaxLeaf]:
+        h, dh = self.num_heads, self.head_dim
+        dim = h * dh
+        leaves = []
         for name in ("query", "key", "value"):
-            kernel = _f32(tree[name]["kernel"])
-            getattr(self, name).load({"kernel": kernel.reshape(kernel.shape[0], -1),
-                                      "bias": _f32(tree[name]["bias"]).reshape(-1)})
-        kernel = _f32(tree["out"]["kernel"])
-        self.out.load({"kernel": kernel.reshape(-1, kernel.shape[-1]), "bias": tree["out"]["bias"]})
+            dense = getattr(self, name)
+            leaves += [((name, "kernel"), dense.weight, (dim, h, dh), True),
+                       ((name, "bias"), dense.bias, (h, dh), False)]
+        return leaves + [(("out", "kernel"), self.out.weight, (h, dh, dim), True),
+                         (("out", "bias"), self.out.bias, (dim,), False)]
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:
         """[..., L, D] -> [..., L, H, Dh]."""

@@ -16,7 +16,7 @@ pool never reads them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +24,8 @@ from torch import nn
 
 from rag_uq_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_uq_tpu_torch.core.flax_nn import (
-    Dense, Embed, LayerNorm, MultiHeadAttention, gelu, torch_dtype,
+    Dense, Embed, FlaxLeaf, LayerNorm, MultiHeadAttention, flax_leaves, gelu, load_flax_tree,
+    torch_dtype,
 )
 from rag_uq_tpu_torch.text.tokenize import hash_texts
 
@@ -50,12 +51,12 @@ class TransformerBlock(nn.Module):
         self.mlp_in = Dense(config.dim, config.mlp_dim, dt, gen)
         self.mlp_out = Dense(config.mlp_dim, config.dim, dt, gen)
 
-    def load(self, tree) -> None:
-        self.ln_attn.load(tree["LayerNorm_0"])
-        self.attn.load(tree["MultiHeadDotProductAttention_0"])
-        self.ln_mlp.load(tree["LayerNorm_1"])
-        self.mlp_in.load(tree["Dense_0"])
-        self.mlp_out.load(tree["Dense_1"])
+    def flax_params(self) -> List[FlaxLeaf]:
+        return (flax_leaves(self.ln_attn, ("LayerNorm_0",))
+                + flax_leaves(self.attn, ("MultiHeadDotProductAttention_0",))
+                + flax_leaves(self.ln_mlp, ("LayerNorm_1",))
+                + flax_leaves(self.mlp_in, ("Dense_0",))
+                + flax_leaves(self.mlp_out, ("Dense_1",)))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_attn(x), mask)
@@ -74,13 +75,12 @@ class EncoderModel(nn.Module):
         self.blocks = nn.ModuleList(TransformerBlock(config, gen) for _ in range(config.num_layers))
         self.ln_out = LayerNorm(config.dim, dt)
 
-    def load(self, params) -> None:
-        """From the flax ``params`` tree; blocks by their number, not order."""
-        self.tok.load(params["Embed_0"])
-        self.pos.load(params["Embed_1"])
+    def flax_params(self) -> List[FlaxLeaf]:
+        """The leaves of flax's ``params`` tree; blocks by their number."""
+        leaves = flax_leaves(self.tok, ("Embed_0",)) + flax_leaves(self.pos, ("Embed_1",))
         for i, block in enumerate(self.blocks):
-            block.load(params[f"TransformerBlock_{i}"])
-        self.ln_out.load(params["LayerNorm_0"])
+            leaves += flax_leaves(block, (f"TransformerBlock_{i}",))
+        return leaves + flax_leaves(self.ln_out, ("LayerNorm_0",))
 
     def forward(self, ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         positions = torch.arange(ids.shape[1], device=ids.device)
@@ -109,8 +109,7 @@ class TransformerEmbedder:
 
     def load_params(self, params) -> None:
         """Load a flax parameter tree (``{"params": ...}`` or its inside)."""
-        with torch.no_grad():
-            self.model.load(params.get("params", params))
+        load_flax_tree(self.model.flax_params(), params.get("params", params))
 
     @torch.no_grad()
     def encode_device(self, ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

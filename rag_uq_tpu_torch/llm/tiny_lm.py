@@ -46,7 +46,8 @@ from torch import nn
 
 from rag_uq_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_uq_tpu_torch.core.flax_nn import (
-    Dense, Embed, LayerNorm, MultiHeadAttention, gelu, torch_dtype,
+    Dense, Embed, FlaxLeaf, LayerNorm, MultiHeadAttention, flax_leaves, gelu, load_flax_tree,
+    torch_dtype,
 )
 
 BOS = 256
@@ -86,7 +87,11 @@ class DecoderLayer(nn.Module):
 
 class DecoderModel(nn.Module):
     """tok [B, S] at positions ``cache.index .. + S - 1`` -> logits [B, S, VOCAB]
-    f32, writing keys and values into ``cache`` and advancing its index."""
+    f32, writing keys and values into ``cache`` and advancing its index.
+
+    Without a cache it is the training forward (``rag_uq_tpu/llm/train.py::
+    _TrainableDecoder``, the same parameter tree): positions ``0 .. S - 1``
+    under a causal mask that masks no padding (the loss mask does that)."""
 
     def __init__(self, config: TinyLMConfig, gen: Optional[torch.Generator] = None):
         super().__init__()
@@ -98,33 +103,33 @@ class DecoderModel(nn.Module):
         self.ln_out = LayerNorm(config.dim, dt)
         self.head = Dense(config.dim, VOCAB, torch.float32, gen)
 
-    def load(self, params) -> None:
-        """From the flax tree. Its keys sort as strings (``Dense_10`` before
-        ``Dense_2``), so every layer is looked up by its number: layer ``i``
-        owns ``LayerNorm_{2i}``, ``MultiHeadDotProductAttention_{i}``,
+    def flax_params(self) -> List[FlaxLeaf]:
+        """The leaves of the flax tree. Its keys sort as strings (``Dense_10``
+        before ``Dense_2``), so every layer is named by its number: layer
+        ``i`` owns ``LayerNorm_{2i}``, ``MultiHeadDotProductAttention_{i}``,
         ``LayerNorm_{2i+1}``, ``Dense_{2i}`` and ``Dense_{2i+1}``."""
         n = self.config.num_layers
-        self.tok.load(params["Embed_0"])
-        self.pos.load(params["Embed_1"])
+        leaves = flax_leaves(self.tok, ("Embed_0",)) + flax_leaves(self.pos, ("Embed_1",))
         for i, layer in enumerate(self.layers):
-            layer.ln_attn.load(params[f"LayerNorm_{2 * i}"])
-            layer.attn.load(params[f"MultiHeadDotProductAttention_{i}"])
-            layer.ln_mlp.load(params[f"LayerNorm_{2 * i + 1}"])
-            layer.mlp_in.load(params[f"Dense_{2 * i}"])
-            layer.mlp_out.load(params[f"Dense_{2 * i + 1}"])
-        self.ln_out.load(params[f"LayerNorm_{2 * n}"])
-        self.head.load(params[f"Dense_{2 * n}"])
+            leaves += (flax_leaves(layer.ln_attn, (f"LayerNorm_{2 * i}",))
+                       + flax_leaves(layer.attn, (f"MultiHeadDotProductAttention_{i}",))
+                       + flax_leaves(layer.ln_mlp, (f"LayerNorm_{2 * i + 1}",))
+                       + flax_leaves(layer.mlp_in, (f"Dense_{2 * i}",))
+                       + flax_leaves(layer.mlp_out, (f"Dense_{2 * i + 1}",)))
+        return (leaves + flax_leaves(self.ln_out, (f"LayerNorm_{2 * n}",))
+                + flax_leaves(self.head, (f"Dense_{2 * n}",)))
 
     def init_cache(self, batch: int) -> KVCache:
         cfg = self.config
         heads = cfg.num_heads
         shape = (batch, cfg.max_total_len, heads, cfg.dim // heads)
-        dev, dt = self.tok.embedding.device, self.tok.embedding.dtype
+        dev, dt = self.tok.embedding.device, self.tok.dtype
         zeros = lambda: [torch.zeros(shape, dtype=dt, device=dev) for _ in self.layers]
         return KVCache(zeros(), zeros())
 
-    def forward(self, tok: torch.Tensor, cache: KVCache, logits: bool = True):
-        start, steps = cache.index, tok.shape[1]
+    def forward(self, tok: torch.Tensor, cache: Optional[KVCache] = None, logits: bool = True):
+        start = 0 if cache is None else cache.index
+        steps = tok.shape[1]
         end = start + steps
         if end > self.config.max_total_len:
             raise ValueError(f"position {end - 1} past max_total_len {self.config.max_total_len}")
@@ -134,13 +139,17 @@ class DecoderModel(nn.Module):
         if steps > 1:  # causal over the new positions; every cached one is visible
             keys_pos = torch.arange(end, device=tok.device)
             mask = (keys_pos[None, :] <= positions[:, None])[None, None]
-        for layer, kc, vc in zip(self.layers, cache.keys, cache.values):
+        for i, layer in enumerate(self.layers):
             q, k, v = layer.attn.qkv(layer.ln_attn(x))
-            kc[:, start:end] = k
-            vc[:, start:end] = v
-            x = x + layer.attn.attend(q, kc[:, :end], vc[:, :end], mask)
+            if cache is not None:
+                kc, vc = cache.keys[i], cache.values[i]
+                kc[:, start:end] = k
+                vc[:, start:end] = v
+                k, v = kc[:, :end], vc[:, :end]
+            x = x + layer.attn.attend(q, k, v, mask)
             x = x + layer.mlp_out(gelu(layer.mlp_in(layer.ln_mlp(x))))
-        cache.index = end
+        if cache is not None:
+            cache.index = end
         if not logits:
             return None
         return self.head(self.ln_out(x))
@@ -189,8 +198,7 @@ class TinyLM:
         self.last_stats = {"rows": 0, "prefill": 0, "steps": 0, "tokens": 0}
 
     def load_params(self, params) -> None:
-        with torch.no_grad():
-            self.model.load(params)
+        load_flax_tree(self.model.flax_params(), params)
 
     # -- encoding ---------------------------------------------------------------
 

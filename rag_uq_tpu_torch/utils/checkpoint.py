@@ -1,4 +1,5 @@
-"""Read flax checkpoints (``flax.serialization.to_bytes``) without msgpack.
+"""Read and write flax checkpoints (``flax.serialization.to_bytes``)
+without msgpack.
 
 flax writes a state dict as msgpack: maps with string keys (tuples and
 lists become maps keyed "0", "1", ...), with each array leaf an extension
@@ -13,11 +14,20 @@ cannot hold without ``ml_dtypes``: those are ``torch.bfloat16`` tensors.
 Leaves over 2**30 bytes, which flax splits into ``__msgpack_chunked_array__``
 maps, are reassembled. Keys keep the file's order, which is sorted as
 strings (``Dense_10`` before ``Dense_2``): consumers look layers up by name.
+
+``write_msgpack`` is the inverse: nested dicts with string keys, numpy
+arrays (extension 1), numpy scalars (extension 3), bfloat16 torch tensors
+(extension 1 with the dtype name "bfloat16"), Python ints, floats, strings,
+bytes, bools and None, packed as msgpack-python packs them (the smallest integer
+and length forms, floats as doubles), so a tree flax would write comes out
+byte for byte as ``flax.serialization.to_bytes`` writes it. Leaves over
+2**30 bytes, which flax would chunk, are refused.
 """
 
 from __future__ import annotations
 
 import struct
+from pathlib import Path
 from typing import Any, Dict, Tuple, Union
 
 import numpy as np
@@ -159,3 +169,131 @@ def to_numpy_f32(leaf: Leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.float().numpy()
     return np.asarray(leaf, dtype=np.float32)
+
+
+_MAX_LEAF_BYTES = 1 << 30
+
+
+class _Writer:
+    def __init__(self):
+        self.out = bytearray()
+
+    def head(self, fix: int, fix_max: int, forms, n: int) -> None:
+        """A length or integer head: ``fix | n`` while n < fix_max, else
+        the first of ``forms`` ((type byte, struct format, max)) that holds n."""
+        if n < fix_max:
+            self.out.append(fix | n)
+            return
+        for byte, fmt, top in forms:
+            if n <= top:
+                self.out.append(byte)
+                self.out += struct.pack(fmt, n)
+                return
+        raise CheckpointFormatError(f"length {n} is too large for msgpack")
+
+    def int(self, n: int) -> None:
+        if 0 <= n < 0x80:
+            self.out.append(n)
+        elif -32 <= n < 0:
+            self.out.append(n & 0xFF)
+        elif n > 0:
+            self.head(0, 0, ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                             (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", (1 << 64) - 1)), n)
+        else:
+            for byte, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                                   (0xD2, ">i", -(1 << 31)), (0xD3, ">q", -(1 << 63))):
+                if n >= low:
+                    self.out.append(byte)
+                    self.out += struct.pack(fmt, n)
+                    return
+            raise CheckpointFormatError(f"integer {n} is too small for msgpack")
+
+    def str(self, s: str) -> None:
+        raw = s.encode("utf-8")
+        self.head(0xA0, 32, ((0xD9, ">B", 0xFF), (0xDA, ">H", 0xFFFF),
+                             (0xDB, ">I", 0xFFFFFFFF)), len(raw))
+        self.out += raw
+
+    def bin(self, raw: bytes) -> None:
+        self.head(0, 0, ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF),
+                         (0xC6, ">I", 0xFFFFFFFF)), len(raw))
+        self.out += raw
+
+    def ext(self, code: int, payload: bytes) -> None:
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.out.append(fixed[n])
+        else:
+            self.head(0, 0, ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF),
+                             (0xC9, ">I", 0xFFFFFFFF)), n)
+        self.out += struct.pack(">b", code)
+        self.out += payload
+
+    def value(self, x: Any) -> None:
+        if x is None:
+            self.out.append(0xC0)
+        elif isinstance(x, bool):
+            self.out.append(0xC3 if x else 0xC2)
+        elif isinstance(x, dict):
+            self.head(0x80, 16, ((0xDE, ">H", 0xFFFF), (0xDF, ">I", 0xFFFFFFFF)), len(x))
+            for key, v in x.items():
+                if not isinstance(key, str):
+                    raise CheckpointFormatError(f"map key {key!r} is not a string")
+                self.str(key)
+                self.value(v)
+        elif isinstance(x, (np.ndarray, torch.Tensor)):
+            self.ext(_EXT_NDARRAY, _array_payload(x))
+        elif isinstance(x, np.generic):
+            self.ext(_EXT_NPSCALAR, _array_payload(np.asarray(x)))
+        elif isinstance(x, int):
+            self.int(x)
+        elif isinstance(x, float):
+            self.out.append(0xCB)
+            self.out += struct.pack(">d", x)
+        elif isinstance(x, str):
+            self.str(x)
+        elif isinstance(x, bytes):
+            self.bin(x)
+        else:
+            raise CheckpointFormatError(f"cannot write a {type(x).__name__} leaf")
+
+
+def _array_payload(arr: Leaf) -> bytes:
+    """flax's ``_ndarray_to_bytes``: msgpack of (shape, dtype name, C bytes)."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            shape, name, raw = tuple(t.shape), "bfloat16", t.view(torch.int16).numpy().tobytes()
+        else:
+            arr = t.numpy()
+    if isinstance(arr, np.ndarray):
+        if arr.dtype.hasobject or arr.dtype.fields is not None:
+            raise CheckpointFormatError(f"cannot write dtype {arr.dtype}")
+        shape, name, raw = arr.shape, arr.dtype.name, arr.tobytes("C")
+    if len(raw) > _MAX_LEAF_BYTES:
+        raise CheckpointFormatError(f"a leaf of {len(raw)} bytes would be chunked by flax")
+    w = _Writer()
+    w.head(0x90, 16, ((0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF)), 3)
+    w.head(0x90, 16, ((0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF)), len(shape))
+    for n in shape:
+        w.int(int(n))
+    w.str(name)
+    w.bin(raw)
+    return bytes(w.out)
+
+
+def write_msgpack(tree: Any) -> bytes:
+    """Encode nested dicts of leaves as flax's ``msgpack_serialize`` does."""
+    w = _Writer()
+    w.value(tree)
+    return bytes(w.out)
+
+
+def save_flax_checkpoint(path: str, tree: Any) -> None:
+    """Write ``tree`` to ``path`` (its directory made), readable by
+    ``flax.serialization.from_bytes`` and by ``load_flax_checkpoint``."""
+    data = write_msgpack(tree)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)

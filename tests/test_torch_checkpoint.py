@@ -1,10 +1,13 @@
-"""The port's flax checkpoint reader against ``flax.serialization``.
+"""The port's flax checkpoint reader and writer against ``flax.serialization``.
 
-``rag_uq_tpu_torch.utils.checkpoint`` decodes flax's msgpack without the
-``msgpack`` package. Held here to ``flax.serialization.msgpack_restore`` on
-the checkpoints in the repository and on ``to_bytes`` trees of every leaf
-kind flax writes: same keys in the same order, same shapes and dtypes,
-values bit for bit (bf16 compared as its 16-bit patterns).
+``rag_uq_tpu_torch.utils.checkpoint`` decodes and encodes flax's msgpack
+without the ``msgpack`` package. The reader is held to
+``flax.serialization.msgpack_restore`` on the checkpoints in the repository
+and on ``to_bytes`` trees of every leaf kind flax writes: same keys in the
+same order, same shapes and dtypes, values bit for bit (bf16 compared as
+its 16-bit patterns). The writer must give back the bytes of every
+checkpoint in the repository from what the reader read, and the bytes of
+``to_bytes`` on the same trees.
 """
 
 import jax.numpy as jnp
@@ -17,6 +20,8 @@ from rag_uq_tpu_torch.utils.checkpoint import (
     CheckpointFormatError,
     load_flax_checkpoint,
     read_msgpack,
+    save_flax_checkpoint,
+    write_msgpack,
 )
 
 CHECKPOINTS = [
@@ -114,3 +119,37 @@ def test_corrupt_bytes_raise():
         read_msgpack(data + b"\x00")
     with pytest.raises(CheckpointFormatError):
         read_msgpack(b"\xc1")
+
+
+def _torch_leaves(tree):
+    """A flax state dict with its bf16 leaves as torch tensors, as the port
+    holds them."""
+    if isinstance(tree, dict):
+        return {k: _torch_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, (np.ndarray, np.generic)) and tree.dtype == jnp.bfloat16:
+        bits = torch.from_numpy(np.array(np.asarray(tree).view(np.int16)))
+        return bits.view(torch.bfloat16)
+    return tree
+
+
+@pytest.mark.parametrize("path", CHECKPOINTS)
+def test_writer_gives_back_repo_checkpoints(path, tmp_path):
+    with open(path, "rb") as f:
+        data = f.read()
+    assert write_msgpack(load_flax_checkpoint(path)) == data
+    save_flax_checkpoint(str(tmp_path / "sub" / "c.msgpack"), load_flax_checkpoint(path))
+    assert (tmp_path / "sub" / "c.msgpack").read_bytes() == data
+
+
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_writer_matches_to_bytes(case):
+    tree = next(t for i, t in enumerate(_round_trip_trees()) if i == case)
+    state = serialization.msgpack_restore(serialization.to_bytes(tree))
+    assert write_msgpack(_torch_leaves(state)) == serialization.to_bytes(tree)
+
+
+def test_writer_refuses_what_flax_would_not_write():
+    for bad in ({"l": [1, 2]}, {1: np.zeros(2)}, {"o": np.array([object()])},
+                {"s": {1, 2}}):
+        with pytest.raises(CheckpointFormatError):
+            write_msgpack(bad)
