@@ -93,15 +93,45 @@ Phases, each printing one line "phase <name> ok <seconds>":
            step time, tokens/s, TFLOP/s, peak memory and a profiled step's
            idle share; fit_qa, the exported sampler answering 4 prompts,
            the checkpoint reloading; and cli/train_lm.py's train_extractor
-           at a small size.
+           at a small size;
+  doctor   cli/doctor.py's report (its JSON: torch and its CUDA build, the
+           card and its power limit, nvcc, CUTLASS's headers, g++, the
+           native tokenizer, matplotlib), which must say ok, and
+           cli/warmup.py (both kernel libraries, the tokenizer, the fused
+           query at B = 256 and 1024, a router step, one TinyLM generate);
+  eval     cli/evaluate.py's run_evaluation as the JAX pipeline's step 6 ran
+           it on the demo: its encoder index, router/final_router.msgpack,
+           models/tiny_lm_r5, ConformalRAG in mc_variance mode with MC 8 on
+           a copy of calibration.db, mc_samples 8, the concat policy, over
+           nq.jsonl rows [500, 700) with rows [0, 200) as the calibration
+           split (the demo used 1,000 and 500); first the heap kernel against
+           its plain twin at the evaluation's retrieval chunks (B = 128 and
+           72, k = 50, over the 5,000 live D = 256 rows), timed beside the
+           library; then recall@10, MRR and router_accuracy within 0.03 and
+           exact match within 0.05 of the JAX fixture
+           tests/data/torch_eval_fixture.json, top-1 retrieved ids equal for
+           at least 90% of the 200 (the others printed), ECE after scaling
+           finite and at most 0.15, cold_start_ms apart, and
+           evaluation_results.json and predictions.jsonl with the JAX keys;
+  pipeline cli/run_pipeline.py end to end in a temporary workdir at the JAX
+           CLI's non-quick scales (5,000 articles, 3,000 QA rows, 500
+           calibration, 200 test, 50 router epochs; 1,000 encoder steps,
+           cut from 2,000),
+           TinyLM zero-shot from models/tiny_lm_r5, the pool7 router with its
+           reference3 control, and the ablation: every artifact of the JAX
+           pipeline, the test split disjoint from the router and encoder
+           pools, router val hit@1 >= 0.80, evaluation MRR >= 0.60 and exact
+           match >= 0.45; its timings printed;
+  profile  cli/profile_fused.py at bench.py's shape, 3 launches a stage
+           (CUDA events), printed stage by stage.
 
-Each of the five serving paths and the two kernel paths of the train phase
-runs with the kernel's launch counts set to 0 just before it and fails if
-the dense kernel was not launched in it (the persist path also if the
-large-k kernels were not). Then every number the train phase recorded, one
-"train <key> <value>" line each, one JSON line {"kernels": [...]}, a row for
-the heap kernel and one for the large-k kernels, and, last,
-{"ok": true, "device": ...}.
+Each of the five serving paths, the two kernel paths of the train phase and
+the eval and pipeline paths runs with the kernel's launch counts set to 0
+just before it and fails if the dense kernel was not launched in it (the
+persist path also if the large-k kernels were not). Then every number the
+train phase recorded, one "train <key> <value>" line each, one JSON line
+{"kernels": [...]}, a row for the heap kernel and one for the large-k
+kernels, and, last, {"ok": true, "device": ...}.
 A watchdog dumps every thread's stack and exits non-zero if the run hangs.
 Needs no network; imports nothing of JAX.
 """
@@ -113,6 +143,7 @@ import contextlib
 import faulthandler
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -126,10 +157,15 @@ from unittest import mock
 import numpy as np
 import torch
 
+from rag_uq_tpu_torch.cli import doctor as doctor_cli
+from rag_uq_tpu_torch.cli import evaluate as evaluate_cli
+from rag_uq_tpu_torch.cli import profile_fused as profile_fused_cli
+from rag_uq_tpu_torch.cli import run_pipeline as run_pipeline_cli
 from rag_uq_tpu_torch.cli import serve as serve_mod
 from rag_uq_tpu_torch.cli import train_encoder as train_encoder_cli
 from rag_uq_tpu_torch.cli import train_lm as train_lm_cli
 from rag_uq_tpu_torch.cli import train_router as train_router_cli
+from rag_uq_tpu_torch.cli import warmup as warmup_cli
 from rag_uq_tpu_torch.cli.bench_sharded import tie_aware_agreement
 from rag_uq_tpu_torch.cli.evaluate import build_qa_prompt
 from rag_uq_tpu_torch.cli.serve import QueryService, serve_http
@@ -137,6 +173,7 @@ from rag_uq_tpu_torch.core.config import (
     BM25Config, DenseIndexConfig, EmbedderConfig, RouterConfig, TrainConfig, router_recipe_v2,
 )
 from rag_uq_tpu_torch.core.types import Document
+from rag_uq_tpu_torch.data.loaders import load_qa_jsonl
 from rag_uq_tpu_torch.embed.encoder import EncoderConfig, TransformerEmbedder
 from rag_uq_tpu_torch.embed.hash_embed import Sha256Embedder
 from rag_uq_tpu_torch.embed.train import EncoderTrainConfig, load_encoder_checkpoint
@@ -183,6 +220,28 @@ MIN_DENSE_RECALL, EM_SLACK, MIN_GREEDY_SAME = 0.7, 0.1, 28
 ROUTER_ROWS, ROUTER_POOL, ROUTER_DATA_BATCH, MIN_ROUTER_HIT = (1500, 3000), 20, 512, 0.80
 ENCODER_STEPS = 200
 LM_BATCH, LM_SEQ, LM_LR, LM_STEPS, LM_CHECK_ROWS, LM_LOGIT_BOUND = 64, 1024, 2e-4, 30, 16, 0.1
+# The eval phase: the JAX pipeline's step 6 on the demo, cut in depth to the
+# first 200 test rows and 200 calibration rows (the demo used 1,000 and 500),
+# held to the JAX fixture; the gates' slack, and the files' JAX keys.
+EVAL_FIXTURE, EVAL_ROUTER = Path("tests/data/torch_eval_fixture.json"), RUN / "router/final_router.msgpack"
+EVAL_ROWS, EVAL_CAL_ROWS, EVAL_MC = (500, 700), (0, 200), 8
+EVAL_SLACK, EVAL_EM_SLACK, MIN_TOP1_SAME, MAX_ECE = 0.03, 0.05, 0.9, 0.15
+EVAL_RESULT_KEYS = {"retrieval", "generation", "calibration", "efficiency", "plots", "summary",
+                    "confidence_scaling", "protocol"}
+PREDICTION_KEYS = {"id", "question", "prediction", "references", "retrieved_ids", "gold_ids",
+                   "confidence", "slice"}
+# The pipeline phase: run_pipeline's non-quick scales (rag_uq_tpu/cli/run_pipeline.py),
+# TinyLM zero-shot from models/tiny_lm_r5 as the demo ran it; its artifacts and gates.
+# Cut: 1,000 encoder steps, not 2,000, to keep the whole script near half its
+# time limit (the encoder's loss is 0.0002 after 2,000 on this world).
+PIPELINE_SCALES = {"articles": 5000, "nq": 3000, "cal": 500, "test": 200, "epochs": 50,
+                   "lm_steps": 4000, "enc_steps": 1000, "lm_checkpoint": str(DEMO_LM)}
+PIPELINE_ARTIFACTS = ("pipeline_summary.json", "encoder/encoder.msgpack",
+                      "router/final_router.msgpack", "router_reference3/final_router.msgpack",
+                      "calibration.db", "calibration_results.json",
+                      "results/evaluation_results.json", "results/predictions.jsonl",
+                      "results/ablation/ablation_results.json")
+MIN_PIPELINE_MRR, MIN_PIPELINE_EM = 0.60, 0.45
 
 
 @contextlib.contextmanager
@@ -1336,6 +1395,36 @@ def kernel_name(name: str) -> str:
     return f"{base}/{inner[-1]}" if inner else base
 
 
+def demo_index_kernel_case(what: str, index, questions, k: int) -> dict:
+    """The heap kernel against its plain twin (under the tie rule) on the
+    demo index's live D = 256 rows, for these questions' vectors, then timed
+    with CUDA events beside the plain twin and torch.matmul + torch.topk, and
+    its bound: the larger of the bf16 products at the peak rate and the
+    bytes (the live rows, the f32 queries, the values and indices out) at
+    the memory rate."""
+    q = index.embed_queries(questions)
+    size, emb = len(index), index._emb
+    kv, ki = ck.cuda_cosine_topk(emb, q, size, k)
+    pv, pi = ck.cosine_topk_plain(emb, q, size, k)
+    err = check_topk(kv, ki, pv, pi, f"{what}: B={len(q)} k={k} over {size} live rows "
+                     f"D={ENCODER_DIM}", KERNEL_ATOL,
+                     lambda ids: torch.matmul(q[ids].to(emb.dtype).float(), emb[:size].float().T))
+    ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, size, k), reps=50)
+    plain_ms = cuda_ms(lambda: ck.cosine_topk_plain(emb, q, size, k), reps=5)
+    q16 = q.to(emb.dtype)
+    library_ms = cuda_ms(lambda: torch.topk(torch.matmul(q16, emb[:size].T), k), reps=50)
+    t_ops = 2.0 * len(q) * size * ENCODER_DIM / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (size * ENCODER_DIM * 2 + q.numel() * 4 + len(q) * k * 8) / PEAK_BYTES_S * 1e3
+    out = {"B": len(q), "k": k, "live_rows": size, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log(f"  heap kernel at {what} (B = {len(q)}, k = {k}, {size} live D = {ENCODER_DIM} "
+        f"rows): max_abs_err {err:.3g}, tie-aware agreement 1.0; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
+    return out
+
+
 def train_router_path(retriever, qa_rows, tmp: Path, device: str) -> dict:
     """cli/train_router.py on the card: data from the demo retriever (the
     heap kernel's dense pool), then the pool7 router of the demo run."""
@@ -1569,29 +1658,13 @@ def phase_train(fixture, device: str = "cuda") -> dict:
     router_rows = qa[ROUTER_ROWS[0] : ROUTER_ROWS[1]]
 
     index = retriever.dense_index
-    q = index.embed_queries([r["question"] for r in router_rows[:ROUTER_DATA_BATCH]])
-    kv, ki = ck.cuda_cosine_topk(index._emb, q, len(index), POOL)
-    pv, pi = ck.cosine_topk_plain(index._emb, q, len(index), POOL)
-    err = check_topk(kv, ki, pv, pi, f"train path B={len(q)} k={POOL} over {len(index)} live "
-                     f"rows D={ENCODER_DIM}", KERNEL_ATOL,
-                     lambda ids: torch.matmul(q[ids].to(index._emb.dtype).float(),
-                                              index._emb[: len(index)].float().T))
-    size, emb = len(index), index._emb
-    ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, size, POOL), reps=50)
-    plain_ms = cuda_ms(lambda: ck.cosine_topk_plain(emb, q, size, POOL), reps=5)
-    q16 = q.to(emb.dtype)
-    library_ms = cuda_ms(lambda: torch.topk(torch.matmul(q16, emb[:size].T), POOL), reps=50)
-    t_ops = 2.0 * len(q) * size * ENCODER_DIM / PEAK_BF16_FLOPS * 1e3
-    t_bytes = (size * ENCODER_DIM * 2 + q.numel() * 4 + len(q) * POOL * 8) / PEAK_BYTES_S * 1e3
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    log(f"  heap kernel at the router data path's shape (B = {len(q)}, k = {POOL}, "
-        f"{size} live D = {ENCODER_DIM} rows): max_abs_err {err:.3g}, tie-aware agreement 1.0; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    timing = demo_index_kernel_case(
+        "the router data path's shape", index,
+        [r["question"] for r in router_rows[:ROUTER_DATA_BATCH]], POOL)
+    err = timing.pop("max_abs_err")
     with tempfile.TemporaryDirectory() as tmp:
         router = train_router_path(retriever, router_rows, Path(tmp), device)
-        del retriever, encoder, index, q
+        del retriever, encoder, index
         torch.cuda.empty_cache()
         enc = train_encoder_path(corpus, qa, Path(tmp), device)
         torch.cuda.empty_cache()
@@ -1599,6 +1672,151 @@ def phase_train(fixture, device: str = "cuda") -> dict:
     torch.cuda.empty_cache()
     return {"kernel_max_abs_err": err, "kernel_timing": timing, "router": router, "encoder": enc,
             "tiny_lm": lm}
+
+
+def phase_doctor(device: str = "cuda") -> dict:
+    """cli/doctor.py's report (printed as its JSON) and cli/warmup.py at the
+    serving shapes, TinyLM included."""
+    with tempfile.TemporaryDirectory() as tmp:
+        report = doctor_cli.diagnose(create_dirs=True, workdir=tmp, device=device)
+        made = all((Path(tmp) / d).is_dir() for d in ("data/raw", "models/router", "results"))
+    log(f"  doctor: {json.dumps(report)}")
+    if not (report["ok"] and made and report["devices"] and report["nvcc"]["path"]):
+        raise AssertionError(f"doctor: {report}")
+    warm = warmup_cli.warmup(with_llm=True, device=device)
+    log(f"  warmup: {json.dumps(warm)}")
+    return {"doctor_ok": report["ok"], "warmup": warm}
+
+
+def phase_eval(device: str = "cuda") -> dict:
+    """run_evaluation on the demo run, as the JAX pipeline's step 6 ran it:
+    the demo's encoder index, router/final_router.msgpack, TinyLM
+    models/tiny_lm_r5, ConformalRAG in mc_variance mode with MC 8 on a copy of
+    calibration.db, mc_samples 8, the concat policy; the test set is nq.jsonl
+    rows [500, 700) and the calibration split rows [0, 200). Held to the JAX
+    fixture tests/data/torch_eval_fixture.json."""
+    fixture = json.loads(EVAL_FIXTURE.read_text())
+    qa = read_jsonl(RUN / "nq.jsonl")
+    test, cal = qa[EVAL_ROWS[0] : EVAL_ROWS[1]], qa[EVAL_CAL_ROWS[0] : EVAL_CAL_ROWS[1]]
+    if [r["id"] for r in fixture["records"]] != [r["id"] for r in test]:
+        raise AssertionError("the evaluation fixture's ids are not nq.jsonl rows [500, 700)")
+    encoder = load_encoder_checkpoint(str(DEMO_ENCODER), device=device)
+    retriever = build_demo_index(encoder, read_jsonl(RUN / "corpus.jsonl"), device)
+    router = RetrievalRouter(device=device)
+    load_router_checkpoint(router, str(EVAL_ROUTER))
+    lm = load_lm_checkpoint(str(DEMO_LM), device=device)
+    # The retrieval chunks of _predict_batch: 128 questions, then the ragged rest.
+    chunk = 128
+    shapes = [demo_index_kernel_case(f"the evaluation's retrieval chunk {i}", retriever.dense_index,
+                                     [r["question"] for r in test[lo : lo + chunk]], POOL)
+              for i, lo in enumerate(range(0, len(test), chunk))]
+    with tempfile.TemporaryDirectory() as tmp:
+        db = Path(tmp) / "calibration.db"
+        db.write_bytes((RUN / "calibration.db").read_bytes())
+        mc = MCDropoutConfidence(lm, n_samples=EVAL_MC, seed=0, device=device)
+        conformal = ConformalRAG(lm, calibration_db_path=str(db), nonconformity_mode="mc_variance",
+                                 mc=mc, device=device)
+        ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+        results, wall = timed(lambda: evaluate_cli.run_evaluation(
+            retriever, test, llm=lm, router=router, conformal=conformal, mc_samples=EVAL_MC,
+            output_dir=f"{tmp}/results", calibration_samples=cal, context_policy="concat"))
+        launches = ck.cuda_cosine_topk.launches
+        saved = json.loads(Path(f"{tmp}/results/evaluation_results.json").read_text())
+        rows = read_jsonl(Path(f"{tmp}/results/predictions.jsonl"))
+    ret, gen, cal_m = results["retrieval"], results["generation"], results["calibration"]
+    ours = {"recall@1": ret["recall@k"][1], "recall@5": ret["recall@k"][5],
+            "recall@10": ret["recall@k"][10], "mrr": ret["mrr"], "ndcg@10": ret["ndcg@10"],
+            "router_accuracy": ret["router_accuracy"], "exact_match": gen["exact_match"]}
+    ref = fixture["metrics"]
+    top1 = [r["retrieved_ids"][:1] == f["retrieved_ids"][:1]
+            for r, f in zip(rows, fixture["records"])]
+    other = [(r["id"], r["retrieved_ids"][:1], f["retrieved_ids"][:1])
+             for r, f in zip(rows, fixture["records"]) if r["retrieved_ids"][:1] != f["retrieved_ids"][:1]]
+    eff = results["efficiency"]
+    log(f"  evaluation of {len(test)} questions (calibration split {len(cal)}, MC {EVAL_MC}, "
+        f"concat) in {wall:.2f} s, heap kernel launches {launches}")
+    for key in ours:
+        log(f"    {key}: {ours[key]:.4f} (JAX fixture {ref[key]:.4f})")
+    log(f"    top-1 retrieved id as the fixture's for {sum(top1)}/{len(top1)}; differing "
+        f"(id, ours, fixture's): {other}")
+    log(f"    ECE after {results['confidence_scaling']['method']} scaling {cal_m['ece']:.4f} "
+        f"(raw {results['confidence_scaling']['raw_ece']:.4f}), Brier {cal_m['brier_score']:.4f}")
+    log(f"    latency fields (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in eff.items() if k != "cold_start_ms") +
+        f"; cold start apart: {eff['cold_start_ms']}")
+    for key in ("recall@10", "mrr", "router_accuracy"):
+        if abs(ours[key] - ref[key]) > EVAL_SLACK:
+            raise AssertionError(f"evaluation {key} {ours[key]} vs the fixture's {ref[key]}")
+    if abs(ours["exact_match"] - ref["exact_match"]) > EVAL_EM_SLACK:
+        raise AssertionError(f"evaluation exact match {ours['exact_match']} vs {ref['exact_match']}")
+    if sum(top1) < MIN_TOP1_SAME * len(top1) or launches < 1:
+        raise AssertionError(f"top-1 ids equal for {sum(top1)}/{len(top1)}, launches {launches}")
+    if not (math.isfinite(cal_m["ece"]) and cal_m["ece"] <= MAX_ECE):
+        raise AssertionError(f"ECE after scaling {cal_m['ece']}")
+    if not {"retrieval_ms", "generation_ms", "mc_ms", "total"} <= set(eff["cold_start_ms"]):
+        raise AssertionError(f"cold_start_ms {eff['cold_start_ms']}")
+    if set(saved) != EVAL_RESULT_KEYS or any(set(r) != PREDICTION_KEYS for r in rows):
+        raise AssertionError(f"evaluation files: {sorted(saved)}, {sorted(rows[0])}")
+    return {"launches": launches, "wall_s": wall, "metrics": ours, "fixture": ref,
+            "top1_same": sum(top1), "ece": cal_m["ece"], "raw_ece":
+            results["confidence_scaling"]["raw_ece"], "efficiency": eff, "kernel_shapes": shapes}
+
+
+def phase_pipeline(device: str = "cuda") -> dict:
+    """run_pipeline end to end in a temporary workdir at the JAX CLI's
+    non-quick scales, zero-shot TinyLM models/tiny_lm_r5, pool7 router (with
+    its reference3 control) and the ablation."""
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp) / "pipeline"
+        ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+        summary, wall = timed(lambda: run_pipeline_cli.run_pipeline(
+            workdir=str(work), scales=dict(PIPELINE_SCALES), seed=0, router_features="pool7",
+            run_ablation=True, device=device))
+        launches = ck.cuda_cosine_topk.launches
+        missing = [a for a in PIPELINE_ARTIFACTS if not (work / a).exists()]
+        all_rows = load_qa_jsonl(str(work / "nq.jsonl"))
+        n_cal, n_test = PIPELINE_SCALES["cal"], PIPELINE_SCALES["test"]
+        held, fit = all_rows[: n_cal + n_test], all_rows[n_cal + n_test : PIPELINE_SCALES["nq"]]
+        router_pool = run_pipeline_cli.build_router_pool(fit, all_rows, PIPELINE_SCALES["nq"])
+        encoder_pool = run_pipeline_cli.encoder_pool(all_rows, held, router_pool)
+        test_ids = {r["id"] for r in read_jsonl(work / "results/predictions.jsonl")}
+    ev, router = summary["evaluation"], summary["router"]
+    log(f"  pipeline in {wall:.2f} s, heap kernel launches {launches}; timings (s): "
+        f"{summary['timings']}")
+    log(f"  router val hit@1 {router['val_hit_at_1']:.4f} (reference3 control "
+        f"{router['reference3_control']['val_hit_at_1']:.4f}); encoder {summary['encoder']['steps']} "
+        f"steps, final loss {summary['encoder']['final_loss']:.4f}; evaluation "
+        f"{json.dumps(ev)}; ablation MRR: "
+        f"{ {k: round(v['mrr'], 4) for k, v in summary['ablation'].items() if 'mrr' in v} }")
+    if missing:
+        raise AssertionError(f"pipeline artifacts missing: {missing}")
+    if test_ids != {r["id"] for r in held[n_cal:]} or not test_ids.isdisjoint(
+            {r["id"] for r in router_pool + encoder_pool}):
+        raise AssertionError("the test split is not disjoint from the router and encoder pools")
+    if router["val_hit_at_1"] < MIN_ROUTER_HIT or launches < 1:
+        raise AssertionError(f"pipeline router val hit@1 {router['val_hit_at_1']}, "
+                             f"launches {launches}")
+    if ev["mrr"] < MIN_PIPELINE_MRR or ev["exact_match"] < MIN_PIPELINE_EM:
+        raise AssertionError(f"pipeline evaluation {ev}")
+    return {"launches": launches, "wall_s": wall, "timings": summary["timings"],
+            "evaluation": ev, "router_val_hit_at_1": router["val_hit_at_1"],
+            "reference3_val_hit_at_1": router["reference3_control"]["val_hit_at_1"]}
+
+
+def phase_profile(device: str = "cuda") -> dict:
+    """cli/profile_fused.py at bench.py's shape, 3 repetitions a stage."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = profile_fused_cli.run_profile(outdir=tmp, reps=3, device=device)
+        saved = json.loads((Path(tmp) / "fused_breakdown.json").read_text())
+    if saved != out or not all(math.isfinite(v) and v > 0 for v in out["stages_ms"].values()):
+        raise AssertionError(f"profile_fused: {out}")
+    log(f"  fused query profile at B = {out['batch']}, {out['n_docs']} passages (cap "
+        f"{out['cap']}, impact rows {out['tcap']}, active-row bucket {out['active_rows_bucket']}, "
+        f"low blocks {out.get('low_blocks_shape')}), CUDA events, {out['reps']} launches a stage:")
+    for name, ms in out["stages_ms"].items():
+        log(f"    {name}: {ms:.4f} ms")
+    log(f"    full query by batch (ms): {out['full_fused_ms_by_batch']}")
+    return out
 
 
 def flat_items(tree: dict, prefix: str = ""):
@@ -1641,6 +1859,17 @@ def main() -> int:
         train = phase_train(json.loads(FIXTURE.read_text()))
     for key, value in flat_items(train):
         log(f"train {key} {value}")
+    torch.cuda.empty_cache()
+    with phase("doctor"):
+        phase_doctor()
+    with phase("eval"):
+        evaluation = phase_eval()
+    torch.cuda.empty_cache()
+    with phase("pipeline"):
+        pipeline = phase_pipeline()
+    torch.cuda.empty_cache()
+    with phase("profile"):
+        profile = phase_profile()
     faulthandler.cancel_dump_traceback_later()
     row["launches"] = ctx["launches"]
     row["launches_by_path"] = {"scatter": ctx["launches"], "twotier": twotier_launches,
@@ -1648,7 +1877,13 @@ def main() -> int:
                                "answer": answer["launches"],
                                "answer_recall": answer["recall_launches"],
                                "train_router_data": train["router"]["kernel_launches"],
-                               "train_encoder_recall": train["encoder"]["kernel_launches"]}
+                               "train_encoder_recall": train["encoder"]["kernel_launches"],
+                               "eval": evaluation["launches"],
+                               "pipeline": pipeline["launches"]}
+    row["eval_shapes"] = evaluation.pop("kernel_shapes")
+    row["eval_phase"] = evaluation
+    row["pipeline_phase"] = pipeline
+    row["profile_stages_ms"] = profile["stages_ms"]
     row["answer_phase"] = {k: v for k, v in answer.items() if "launches" not in k}
     row["train_phase"] = train
     large_row["launches"] = large_launches  # the persist path's k = 1000 searches

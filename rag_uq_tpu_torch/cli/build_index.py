@@ -3,9 +3,8 @@
 Streams a corpus JSONL into the hybrid index with checkpoint/resume
 (``index/build.py::StreamingIndex``), saves both indices once at the end in
 the JAX package's format, and verifies with sample queries reporting index
-sizes and top hits. The JAX function takes a root ``Config``; the port takes
-the three configs the retriever uses (the root config's other sections
-belong to modules not ported yet).
+sizes and top hits. ``build_index_from_jsonl`` takes the root ``Config`` as
+the JAX function does, and the device.
 
     python3 -m rag_uq_tpu_torch.cli.build_index --corpus corpus.jsonl \\
         --bm25-path data/bm25_index.json --dense-dir data/dense_index --verify
@@ -18,7 +17,7 @@ import json
 import logging
 from typing import Optional, Sequence
 
-from rag_uq_tpu_torch.core.config import BM25Config, DenseIndexConfig, EmbedderConfig
+from rag_uq_tpu_torch.core.config import Config
 from rag_uq_tpu_torch.core.device import DeviceLike
 from rag_uq_tpu_torch.index.build import StreamingIndex
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever
@@ -33,17 +32,16 @@ def build_index_from_jsonl(
     dense_persist_directory: Optional[str] = "./data/dense_index",
     batch_size: int = 100,
     resume: bool = True,
-    bm25_config: Optional[BM25Config] = None,
-    dense_config: Optional[DenseIndexConfig] = None,
-    embedder_config: Optional[EmbedderConfig] = None,
+    config: Optional[Config] = None,
     device: DeviceLike = "cuda",
 ) -> HybridRetriever:
+    cfg = config or Config()
     retriever = HybridRetriever(
         bm25_persist_path=bm25_persist_path,
         dense_persist_directory=dense_persist_directory,
-        bm25_config=bm25_config,
-        dense_config=dense_config,
-        embedder_config=embedder_config,
+        bm25_config=cfg.bm25,
+        dense_config=cfg.dense,
+        embedder_config=cfg.embedder,
         device=device,
     )
     # Stream without per-batch persistence (O(N^2) disk writes otherwise);

@@ -5,9 +5,9 @@
 whose dense pool is the hand-written top-k kernel) and labels each passage
 with its best pseudo-relevance over the sample's answers, aligned with the
 score columns. ``train_router`` fits a router (``router/train.py``), scores
-validation hit@1 and writes ``training_results.json`` and
-``final_router.msgpack`` as the JAX CLI does; the training-curves PNG
-(``eval/plots.py``) waits for the evaluation slice. ``--synthetic`` runs
+validation hit@1 and writes ``training_curves.png`` (where matplotlib is
+installed), ``training_results.json`` and ``final_router.msgpack`` as the
+JAX CLI does. ``--synthetic`` runs
 the seeded alternating-regime experiment without an index.
 
 Run: ``python3 -m rag_uq_tpu_torch.cli.train_router --synthetic
@@ -29,6 +29,7 @@ import numpy as np
 from rag_uq_tpu_torch.core.config import RouterConfig, TrainConfig
 from rag_uq_tpu_torch.core.device import DeviceLike
 from rag_uq_tpu_torch.data.loaders import load_qa_jsonl, synthetic_router_data
+from rag_uq_tpu_torch.eval.plots import plot_training_curves
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever
 from rag_uq_tpu_torch.router.labels import aligned_pseudo_labels
 from rag_uq_tpu_torch.router.model import RetrievalRouter
@@ -86,7 +87,8 @@ def train_router(
     output_dir: str = "models/router",
     device: DeviceLike = "cuda",
 ) -> dict:
-    """Fit the router and write the results JSON and the final checkpoint."""
+    """Fit the router and write the curves, the results JSON and the final
+    checkpoint."""
     cfg = train_config or TrainConfig(checkpoint_dir=output_dir)
     router = RetrievalRouter(router_config, device=device)
     trainer = RouterTrainer(router, config=cfg, checkpoint_dir=output_dir)
@@ -106,6 +108,10 @@ def train_router(
     }
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
+    plot_training_curves(
+        history["train_losses"], history["val_losses"],
+        save_path=str(out / "training_curves.png"),
+    )
     with open(out / "training_results.json", "w") as f:
         json.dump(results, f, indent=2)
     trainer.save_checkpoint(str(out / "final_router.msgpack"))

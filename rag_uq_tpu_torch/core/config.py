@@ -6,8 +6,9 @@ configuration means the same thing to both.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass
@@ -181,3 +182,72 @@ class EmbedderConfig:
     # when set with kind == "encoder", the checkpoint's own architecture
     # config wins over the fields above.
     checkpoint_path: Optional[str] = None
+
+
+@dataclass
+class UQConfig:
+    """Uncertainty quantification (reference: confidence.py:101-114,302-307)."""
+
+    n_samples: int = 10
+    temperature_range: Tuple[float, float] = (0.5, 1.2)
+    top_p_range: Tuple[float, float] = (0.8, 0.95)
+    max_tokens: int = 100
+    alpha: float = 0.1  # conformal miscoverage
+    calibration_db_path: str = "data/calibration_scores.db"
+    # Conformal nonconformity score function: "length_ratio" keeps the
+    # reference's heuristic (calibrate on 1-ROUGE, estimate at inference
+    # from the answer/context length ratio — confidence.py:533-539);
+    # "mc_variance" uses the MC-sampling disagreement as the SAME score at
+    # calibration and inference (exchangeable => the coverage guarantee
+    # actually holds; see uq/conformal.py).
+    nonconformity: str = "length_ratio"
+
+
+@dataclass
+class EvalConfig:
+    """Evaluation protocol (reference: eval_protocol.py:149-166)."""
+
+    output_dir: str = "results"
+    n_bins: int = 10
+    bootstrap_samples: int = 1000
+
+
+@dataclass
+class MeshConfig:
+    """Device mesh layout for multi-chip corpus sharding."""
+
+    corpus_axis: str = "corpus"
+    data_axis: str = "data"
+    num_corpus_shards: int = 1
+    num_data_shards: int = 1
+
+
+@dataclass
+class Config:
+    """Root config."""
+
+    router: RouterConfig = field(default_factory=RouterConfig)
+    bm25: BM25Config = field(default_factory=BM25Config)
+    dense: DenseIndexConfig = field(default_factory=DenseIndexConfig)
+    embedder: EmbedderConfig = field(default_factory=EmbedderConfig)
+    uq: UQConfig = field(default_factory=UQConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    chunk: ChunkConfig = field(default_factory=ChunkConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def override(self, dotted: Dict[str, Any]) -> "Config":
+        """Return a copy with `{"section.key": value}` overrides applied."""
+        cfg = dataclasses.replace(self)
+        for path, value in dotted.items():
+            section, _, key = path.partition(".")
+            if not key:
+                raise KeyError(f"Override path must be 'section.key', got {path!r}")
+            sub = getattr(cfg, section)
+            if not hasattr(sub, key):
+                raise KeyError(f"Unknown config key {path!r}")
+            setattr(cfg, section, dataclasses.replace(sub, **{key: value}))
+        return cfg

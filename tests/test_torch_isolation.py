@@ -2,9 +2,12 @@
 
 A fresh interpreter installs a meta-path finder that refuses ``jax``,
 ``flax``, ``optax``, ``msgpack`` and ``rag_uq_tpu`` (and their submodules),
-then imports every module of ``rag_uq_tpu_torch`` and ``chip_smoke.py``
-(imports only: nothing runs). The test fails on any attempt to import a
-refused name, caught or not, and on any refused module found loaded.
+and ``rouge_score``, ``nltk`` and ``matplotlib``, which the card's machine
+does not have (the port computes ROUGE-L itself, and its plots import
+matplotlib inside the function that draws), then imports every module of
+``rag_uq_tpu_torch`` and ``chip_smoke.py`` (imports only: nothing runs).
+The test fails on any attempt to import a refused name, caught or not, and
+on any refused module found loaded.
 """
 
 import json
@@ -13,7 +16,8 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "flax", "optax", "msgpack", "rag_uq_tpu")
+BLOCKED = ("jax", "flax", "optax", "msgpack", "rag_uq_tpu", "rouge_score", "nltk",
+           "matplotlib")
 
 PROGRAM = r"""
 import importlib, importlib.abc, importlib.util, json, pkgutil, sys
@@ -49,5 +53,13 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out["attempts"] == [] and out["loaded"] == [], out
     for name in ("rag_uq_tpu_torch.router.train", "rag_uq_tpu_torch.embed.train",
                  "rag_uq_tpu_torch.llm.train", "rag_uq_tpu_torch.cli.train_lm",
-                 "rag_uq_tpu_torch.data.synth_wiki", "rag_uq_tpu_torch.utils.optim"):
+                 "rag_uq_tpu_torch.data.synth_wiki", "rag_uq_tpu_torch.utils.optim",
+                 "rag_uq_tpu_torch.uq.scaling", "rag_uq_tpu_torch.eval.metrics",
+                 "rag_uq_tpu_torch.eval.plots", "rag_uq_tpu_torch.eval.evaluator",
+                 "rag_uq_tpu_torch.utils.profiling", "rag_uq_tpu_torch.cli.evaluate",
+                 "rag_uq_tpu_torch.cli.calibrate", "rag_uq_tpu_torch.cli.run_pipeline",
+                 "rag_uq_tpu_torch.data.verify", "rag_uq_tpu_torch.data.wikipedia",
+                 "rag_uq_tpu_torch.cli.doctor", "rag_uq_tpu_torch.cli.warmup",
+                 "rag_uq_tpu_torch.cli.profile_fused", "rag_uq_tpu_torch.models",
+                 "rag_uq_tpu_torch.text.porter", "rag_uq_tpu_torch.examples.quickstart"):
         assert name in out["modules"]

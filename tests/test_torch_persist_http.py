@@ -37,7 +37,7 @@ from rag_uq_tpu_torch.cli import serve as serve_mod  # noqa: E402
 from rag_uq_tpu_torch.cli.build_index import build_index_from_jsonl, verify_index  # noqa: E402
 from rag_uq_tpu_torch.cli.serve import QueryService, serve_http  # noqa: E402
 from rag_uq_tpu_torch.core.config import BM25Config, DenseIndexConfig  # noqa: E402
-from rag_uq_tpu_torch.core.config import EmbedderConfig  # noqa: E402
+from rag_uq_tpu_torch.core.config import Config, EmbedderConfig  # noqa: E402
 from rag_uq_tpu_torch.core.types import Document  # noqa: E402
 from rag_uq_tpu_torch.embed.hash_embed import Sha256Embedder  # noqa: E402
 from rag_uq_tpu_torch.index.build import StreamingIndex  # noqa: E402
@@ -203,9 +203,10 @@ def test_build_index_cli_and_verify(tmp_path):
     bm25_path, dense_dir = str(tmp_path / "bm25.json"), str(tmp_path / "dense")
     kw = dict(checkpoint_path=str(tmp_path / "c.json"), bm25_persist_path=bm25_path,
               dense_persist_directory=dense_dir, batch_size=7,
-              dense_config=DenseIndexConfig(embedding_dim=32, initial_capacity=32,
-                                            score_block=32),
-              embedder_config=EmbedderConfig(kind="sha256", dim=32), device="cpu")
+              config=Config(dense=DenseIndexConfig(embedding_dim=32, initial_capacity=32,
+                                                   score_block=32),
+                            embedder=EmbedderConfig(kind="sha256", dim=32)),
+              device="cpu")
     retriever = build_index_from_jsonl(str(corpus), **kw)
     report = verify_index(retriever, ["topic3 number 8"])
     assert report["total_documents"] == report["bm25_documents"] == 30

@@ -7,8 +7,8 @@ numpy seed and the same answer-embedding table (the JAX
 so every result is compared exactly, except: embedding variances within
 1e-6 (f32 sums of the same bf16 rows in another order), and the conformal
 threshold and p-value within 1e-6 (float32 on both sides). The JAX
-``rouge_l`` is compared with ``rouge-score`` switched off, the form the
-port implements (``eval/metrics.py``).
+``rouge_l`` is the live ``rouge-score`` one (its ``eval`` extra), which the
+port's ``eval/metrics.py`` reproduces.
 """
 
 import sqlite3
@@ -101,8 +101,7 @@ def test_mc_confidence_matches_jax(embedders, scored):
     assert res.confidence == 0.0 and res.answers == [] and "error" in res.metadata
 
 
-def test_answer_metrics_match_jax(monkeypatch):
-    monkeypatch.setattr(jax_metrics, "_get_rouge", lambda: None)
+def test_answer_metrics_match_jax():
     pairs = [("Paris", "paris"), ("The Eiffel tower!", "eiffel tower"), ("", "x"),
              ("a b c", "c b a d"), ("1,857", "1857"), ("Lyon", "Paris"), ("  ", "  ")]
     for pred, ref in pairs:
@@ -160,6 +159,31 @@ def test_calibrate_resume_and_predict_match_jax(tmp_path):
         assert a.confidence == pytest.approx(b.confidence)
         assert a.p_value == pytest.approx(b.p_value, abs=1e-6)
         assert a.metadata == pytest.approx(b.metadata)
+
+
+def test_length_ratio_calibration_stores_the_jax_rouge_l(tmp_path):
+    """length_ratio mode stores 1 - ROUGE-L as the nonconformity score:
+    both packages calibrate on the same answers and store the same
+    ``rouge_l`` and ``nonconformity_score`` columns, stemming included."""
+    pytest.importorskip("rouge_score")
+    responses = ["The cats were running home", "In 1949 Orwell wrote it", "Paris is the capital",
+                 "studies of the connected networks", ""]
+    truths = ["cat ran home", "George Orwell wrote it in 1949", "paris",
+              "a study connecting network", "x"]
+    questions = [f"q{i}" for i in range(len(truths))]
+    contexts = [f"context {i}" for i in range(len(truths))]
+    columns = []
+    for name, conformal in (
+            ("ours", ConformalRAG(MockLLM(responses), calibration_db_path=str(tmp_path / "a.db"),
+                                  device="cpu")),
+            ("ref", JaxConformal(JaxMockLLM(responses),
+                                 calibration_db_path=str(tmp_path / "b.db")))):
+        conformal.calibrate(questions, contexts, truths)
+        with sqlite3.connect(conformal.db_path) as conn:
+            columns.append(conn.execute("SELECT predicted_answer, rouge_l, nonconformity_score "
+                                        "FROM calibration_scores ORDER BY id").fetchall())
+    assert columns[0] == columns[1]
+    assert [round(r[1], 6) for r in columns[0]] == [0.5, 0.545455, 0.4, 0.666667, 0.0]
 
 
 def test_mc_variance_mode_matches_jax(tmp_path, embedders, monkeypatch):
