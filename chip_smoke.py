@@ -55,6 +55,25 @@ Phases, each printing one line "phase <name> ok <seconds>":
            identically (the fused query, and DenseIndex.search_batch at
            k = 1000, the large-k path); serve_http on 127.0.0.1:0 answers
            /healthz, /search, /ingest and /answer through urllib;
+  sharded  the multi-device path (parallel/) on the card, over the slice's
+           100k passages: (1) make_mesh(1) starts a one-rank NCCL group; a
+           ShardedHybridIndex fed through add_documents (data-parallel
+           embedding) and laid out by sync answers the slice's first 2048
+           queries exactly (search_batch exact=True, the slice's router) in
+           scatter and twotier mode, held under the tie rule to the slice
+           phase's HybridRetriever.hybrid_search_batch answers (taken before
+           the ingest phase) and to search_batch_unfused (rtol 2^-8, the bf16
+           impacts); its heap kernel launches are counted; (2) the same index
+           cut into four shards of 32,768 rows (the last holds 1,696) and run
+           in this process through the per-shard body and the merge, one
+           heap kernel launch a shard, held to (1); before that the heap
+           kernel against its plain twin at the full, the last and a gloo
+           rank's shard, timed; (3) two ranks spawned on cuda:0 in a gloo
+           group (NCCL refuses two ranks on one card) over 20,480 passages,
+           held to a single-device HybridRetriever over the same passages;
+           (4) the ingest phase's 2,000 passages through add_documents and
+           sync: a replicated delta with no reshard, the new passages found;
+           the seconds of each step and of each 2048-query search;
   answer   the JAX server's default configuration from the checkpoints in
            the checkout: the demo run's encoder, router and TinyLM
            (models/tiny_lm_r5), and cli/serve.py main's two default paths
@@ -125,10 +144,11 @@ Phases, each printing one line "phase <name> ok <seconds>":
   profile  cli/profile_fused.py at bench.py's shape, 3 launches a stage
            (CUDA events), printed stage by stage.
 
-Each of the five serving paths, the two kernel paths of the train phase and
-the eval and pipeline paths runs with the kernel's launch counts set to 0
-just before it and fails if the dense kernel was not launched in it (the
-persist path also if the large-k kernels were not). Then every number the
+Each of the five serving paths, the three sharded paths, the two kernel
+paths of the train phase and the eval and pipeline paths runs with the
+kernel's launch counts set to 0 just before it and fails if the dense
+kernel was not launched in it (the persist path also if the large-k
+kernels were not). Then every number the
 train phase recorded, one "train <key> <value>" line each, one JSON line
 {"kernels": [...]}, a row for the heap kernel and one for the large-k
 kernels, and, last, {"ok": true, "device": ...}.
@@ -140,6 +160,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import faulthandler
 import itertools
 import json
@@ -156,6 +177,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rag_uq_tpu_torch.cli import doctor as doctor_cli
 from rag_uq_tpu_torch.cli import evaluate as evaluate_cli
@@ -172,6 +194,7 @@ from rag_uq_tpu_torch.cli.serve import QueryService, serve_http
 from rag_uq_tpu_torch.core.config import (
     BM25Config, DenseIndexConfig, EmbedderConfig, RouterConfig, TrainConfig, router_recipe_v2,
 )
+from rag_uq_tpu_torch.core.mesh import _spawn_ranks, make_mesh
 from rag_uq_tpu_torch.core.types import Document
 from rag_uq_tpu_torch.data.loaders import load_qa_jsonl
 from rag_uq_tpu_torch.embed.encoder import EncoderConfig, TransformerEmbedder
@@ -185,6 +208,8 @@ from rag_uq_tpu_torch.llm.train import (
 )
 from rag_uq_tpu_torch.native import binding as native_binding
 from rag_uq_tpu_torch.ops import cosine_topk as ck
+from rag_uq_tpu_torch.parallel import sharding
+from rag_uq_tpu_torch.parallel.sharded_index import ShardedHybridIndex
 from rag_uq_tpu_torch.retrieval import fused as fused_mod
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever
 from rag_uq_tpu_torch.router.model import RetrievalRouter
@@ -201,6 +226,9 @@ CAP = 131_072  # the dense index's capacity at 100k rows (pow2 growth)
 # Published H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor rate, HBM.
 PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
 DELTA_FRACTION, N_INGEST = 0.05, 2000  # live ingest: 2% of the base, under the fraction
+SHARDED_BATCH = 4096  # the slice phase's dense fill chunk: the same rows, bit for bit
+SHARDED_RANK_DOCS = 20_480  # the two gloo ranks' passages: 5 batches of 4096
+ORACLE_QUERIES = 256  # queries through search_batch_unfused
 LARGE_KS = (257, 1000, 8192)
 KERNEL_ATOL = 1e-3  # kernel vs plain twin: f32 sums of bf16 products, other order
 F32_ATOL = 1e-5  # f32 corpus: f32 FMA products on both sides (no TF32), other order
@@ -876,9 +904,13 @@ def phase_slice(seed: int, device_name: str) -> dict:
     log(f"  fused query kernel vs plain twin: raw {agree['raw_idx_agreement']:.6f}, "
         f"tie-aware {agree['tie_aware_agreement']:.6f}, max |score diff| "
         f"{agree['rankwise_max_abs_score_diff']:.3g}")
+    # The single-device answers the sharded phase is held to (exact: no
+    # lsel truncation), taken before the ingest phase adds passages.
+    reference = {"scatter": (vals, pos), "twotier": retriever.hybrid_search_batch(
+        queries, top_k=K, router=router, approx=False, sparse_mode="twotier")}
     return {"retriever": retriever, "router": router, "rng": rng, "doc_ids": doc_ids,
-            "requests": requests, "results": results, "launches": launches,
-            "median_s": lat[1], **pools}
+            "texts": texts, "requests": requests, "results": results, "launches": launches,
+            "median_s": lat[1], "reference": reference, **pools}
 
 
 def phase_twotier(ctx: dict) -> int:
@@ -935,6 +967,7 @@ def phase_ingest(ctx: dict) -> int:
     new_docs = [Document(str(N_DOCS + i), " ".join(map(str, row)))
                 for i, row in enumerate(new_ids)]
     requests = [query_batch(rng, new_ids, N_INGEST, offset=N_DOCS)]
+    ctx["ingest"] = (new_docs, requests)
     service = QueryService(retriever, router=ctx["router"], max_batch=BATCH,
                            sparse_mode="scatter")
     try:
@@ -1101,6 +1134,269 @@ def phase_persist(ctx: dict) -> tuple:
         f"/search finds it, /answer (confidence {answer['confidence']:.4f}); kernel launches "
         f"{launches} (large-k {large})")
     return launches, large
+
+
+def hold_to(what: str, got, ref, rtol: float = 1e-4, atol: float = 1e-5,
+            cut_ties=None) -> dict:
+    """Top-k answers against a reference under the tie rule; fails outside it.
+
+    cut_ties, where given, maps the queries the tie rule flags to their
+    docs that tie the BM25 pool's cut (query -> set of rows): two sums of
+    the same scores in another order can put such a doc on either side of
+    the cut, and then the query's answers may differ in that doc's score
+    and, at the end of the list, in what it pushed out. Each flagged query
+    is then held doc by doc: a doc in both answers scores alike unless it
+    is a cut tie, and a doc in one answer only scores no higher than the
+    other answer's last.
+    """
+    got_v, got_i, ref_v, ref_i = (np.asarray(a) for a in (*got, *ref))
+    agree = tie_aware_agreement(got_v, got_i, ref_v, ref_i, rtol=rtol, atol=atol)
+    flagged = [v["query"] for v in agree["violations"]]
+    if flagged and cut_ties is not None:
+        ties = cut_ties(flagged)
+        for q in flagged:
+            gs = dict(zip(got_i[q].tolist(), got_v[q].tolist()))
+            rs = dict(zip(ref_i[q].tolist(), ref_v[q].tolist()))
+            for doc in (set(gs) | set(rs)) - ties[q]:
+                if doc in gs and doc in rs:
+                    ok = abs(gs[doc] - rs[doc]) <= atol + rtol * abs(rs[doc])
+                else:
+                    score, other = (gs[doc], ref_v[q][-1]) if doc in gs else (rs[doc], got_v[q][-1])
+                    ok = score <= other + atol + rtol * abs(other)
+                if not ok:
+                    raise AssertionError(f"{what}: query {q}, doc {doc}, not a tie at the "
+                                         f"BM25 pool's cut: {agree['violations'][:2]}")
+        log(f"  {what}: {len(flagged)} queries differ only by docs that tie the BM25 "
+            f"pool's cut ({sum(len(ties[q]) for q in flagged)} docs)")
+    elif flagged:
+        raise AssertionError(f"{what}: {agree['violations'][:2]}")
+    log(f"  {what}: raw {agree['raw_idx_agreement']:.6f}, tie-aware "
+        f"{agree['tie_aware_agreement']:.6f}, max |score diff| "
+        f"{agree['rankwise_max_abs_score_diff']:.3g}")
+    return agree
+
+
+def bm25_cut_ties(index, queries, pool: int, rtol: float = 1e-5):
+    """cut_ties for hold_to: the docs whose exhaustive BM25 score for the
+    query lies within rtol of the pool-th best (one rank's index)."""
+    def ties(flagged):
+        state = index.sync()
+        b = state["bm25"]
+        qtids = torch.from_numpy(index.bm25.encode_queries([queries[q] for q in flagged]))
+        scores = fused_mod.bm25_ops.score_all(
+            b["indptr"], b["post_doc"], b["post_w"], qtids.to(b["indptr"].device),
+            b["docs_per_shard"], state["max_df"])
+        cut = torch.sort(scores, dim=1, descending=True).values[:, pool - 1 : pool]
+        near = (scores - cut).abs() <= rtol * cut.abs()
+        return {q: set(torch.nonzero(row).flatten().tolist()) for q, row in zip(flagged, near)}
+    return ties
+
+
+def sharded_kernel_cases(emb: torch.Tensor, q: torch.Tensor, shard_cap: int) -> list:
+    """The heap kernel against its plain twin at the sharded path's shapes,
+    timed beside its bound, the twin and torch.matmul + torch.topk: a full
+    four-way shard, the partly full last one, and a gloo rank's shard."""
+    rows = []
+    last = N_DOCS - 3 * shard_cap
+    gloo_cap = 1 << (SHARDED_RANK_DOCS // 2 - 1).bit_length()
+    for what, e, bsz, live in (
+        ("full shard", emb[:shard_cap], BATCH, shard_cap),
+        ("last shard", emb[3 * shard_cap : 4 * shard_cap], BATCH, last),
+        ("gloo rank's shard", emb[:gloo_cap], 512, SHARDED_RANK_DOCS // 2),
+    ):
+        qb = q[:bsz]
+        kv, ki = ck.cuda_cosine_topk(e, qb, live, POOL)
+        pv, pi = ck.cosine_topk_plain(e, qb, live, POOL)
+        err = check_topk(kv, ki, pv, pi, f"heap kernel, {what}: B={bsz} live={live} "
+                         f"rows={e.shape[0]} k={POOL}")
+        live_e, q16 = e[:live], qb.to(e.dtype)
+        ms = cuda_ms(lambda: ck.cuda_cosine_topk(e, qb, live, POOL), reps=20)
+        plain_ms = cuda_ms(lambda: ck.cosine_topk_plain(e, qb, live, POOL), reps=5)
+        library_ms = cuda_ms(lambda: torch.topk(torch.matmul(q16, live_e.T), POOL), reps=20)
+        t_ops = 2.0 * bsz * live * DIM / PEAK_BF16_FLOPS * 1e3
+        t_bytes = (live * DIM * 2 + bsz * DIM * 2 + bsz * POOL * 8) / PEAK_BYTES_S * 1e3
+        rows.append({"shape": what, "B": bsz, "live": live, "rows": e.shape[0], "k": POOL,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+        log(f"    timed: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms")
+    return rows
+
+
+def sharded_rank(rank: int, world: int, texts, queries, outdir: str, seed: int) -> None:
+    """One rank of the sharded phase's gloo group on the card (spawned by
+    _spawn_ranks; both ranks share cuda:0): a ShardedHybridIndex over the
+    passages, ingest data-parallel in batches of SHARDED_BATCH, and the
+    fused query in both sparse modes; every rank writes its answers."""
+    mesh = make_mesh(world, device="cuda")
+    index = ShardedHybridIndex(mesh, embedder_config=EmbedderConfig(dim=DIM),
+                               dense_config=DenseIndexConfig(embedding_dim=DIM))
+    index.add_documents([Document(str(i), t) for i, t in enumerate(texts)],
+                        batch_size=SHARDED_BATCH)
+    router = RetrievalRouter(router_recipe_v2(), seed=seed, device="cuda")
+    ck.cuda_cosine_topk.launches = 0
+    out = {"backend": dist.get_backend(), "shard_cap": index.sync()["shard_cap"],
+           "device": str(index.device)}
+    for mode in ("scatter", "twotier"):
+        out[mode + "_vals"], out[mode + "_idx"] = index.search_batch(
+            queries, top_k=K, pool=POOL, router=router, exact=True, sparse_mode=mode)
+    out["launches"] = ck.cuda_cosine_topk.launches
+    np.savez(Path(outdir) / f"sharded_{rank}.npz", **out)
+
+
+def phase_sharded(ctx: dict, seed: int) -> dict:
+    """The multi-device path on the one card: one NCCL rank, four shards in
+    one process, two gloo ranks."""
+    retriever, router = ctx["retriever"], ctx["router"]
+    queries = ctx["requests"][0][1]
+    docs = [Document(str(i), t) for i, t in enumerate(ctx["texts"])]
+    out: dict = {}
+
+    # 1. One rank: make_mesh without a group starts a one-rank NCCL group.
+    mesh = make_mesh(1, device="cuda")
+    if dist.get_backend() != "nccl" or mesh.size() != 1:
+        raise AssertionError(f"one-rank mesh: {dist.get_backend()} {mesh}")
+    index = ShardedHybridIndex(
+        mesh, embedder=retriever.dense_index.embedder,
+        bm25_config=BM25Config(delta_sync_fraction=DELTA_FRACTION),
+        dense_config=DenseIndexConfig(embedding_dim=DIM))
+    # Ingest batches as the slice phase filled its dense rows, so the rows
+    # are the same bits.
+    _, out["add_s"] = timed(lambda: index.add_documents(docs, batch_size=SHARDED_BATCH))
+    state, out["sync_s"] = timed(index.sync)
+    log(f"  one NCCL rank: {N_DOCS} passages added (data-parallel embedding on a one-rank "
+        f"mesh) in {out['add_s']:.2f} s, laid out in {out['sync_s']:.2f} s (shard_cap "
+        f"{state['shard_cap']}, impact {tuple(state['twotier']['impact'].shape)})")
+    ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+    answers = {}
+    for mode in ("scatter", "twotier"):
+        answers[mode], seconds = timed(lambda: index.search_batch(
+            queries, top_k=K, pool=POOL, router=router, exact=True, sparse_mode=mode))
+        out[f"{mode}_first_s"] = seconds
+    launches = ck.cuda_cosine_topk.launches
+    if launches < 2:
+        raise AssertionError(f"the sharded path launched the heap kernel {launches} times")
+    out["launches"] = launches
+    for mode in ("scatter", "twotier"):
+        hold_to(f"sharded {mode} vs HybridRetriever.hybrid_search_batch", answers[mode],
+                ctx["reference"][mode])
+    # The unfused oracle scores f32 postings where the fused high tier reads
+    # the stored impacts, and bf16 storage can move a doc across the BM25
+    # pool's cut; so the oracle is held against the same documents reloaded
+    # from the JAX-format directory with float32 impacts, under the fixed
+    # fusion. Even then the two sum in other orders (the card's scatter-add
+    # in a new one each run), so a doc that ties the cut may fall on either
+    # side (hold_to's cut_ties). The oracle's exhaustive BM25 gathers
+    # [B, terms, max_df] postings (max_df is 131,072 here), so it answers
+    # the first ORACLE_QUERIES.
+    head = queries[:ORACLE_QUERIES]
+    with tempfile.TemporaryDirectory() as tmp:
+        _, out["save_s"] = timed(lambda: index.save(tmp))
+        f32 = ShardedHybridIndex(mesh, embedder=retriever.dense_index.embedder,
+                                 dense_config=DenseIndexConfig(embedding_dim=DIM))
+        _, out["load_s"] = timed(lambda: f32.load(tmp))
+    if len(f32) != N_DOCS or f32.bm25.config != index.bm25.config:
+        raise AssertionError("the reloaded sharded index lost documents or its config")
+    f32.bm25.config = dataclasses.replace(f32.bm25.config, impact_dtype="float32")
+    unfused, out["unfused_s"] = timed(lambda: f32.search_batch_unfused(head, top_k=K, pool=POOL))
+    for mode in ("scatter", "twotier"):
+        hold_to(f"sharded {mode}, float32 impacts, vs search_batch_unfused ({ORACLE_QUERIES} "
+                f"queries, fixed fusion)", f32.search_batch(
+                    head, top_k=K, pool=POOL, exact=True, sparse_mode=mode), unfused,
+                rtol=1e-5, atol=1e-6, cut_ties=bm25_cut_ties(f32, head, POOL))
+    log(f"  saved {N_DOCS} passages in {out['save_s']:.2f} s, reloaded in {out['load_s']:.2f} s "
+        f"(the JAX directory format)")
+    del f32
+    out["search_s"] = [timed(lambda: index.search_batch(
+        queries, top_k=K, pool=POOL, router=router, exact=True, sparse_mode=mode))[1]
+        for mode in ("scatter", "scatter", "twotier", "twotier")]
+    log(f"  {BATCH}-query search_batch s: scatter first {out['scatter_first_s']:.4f}, then "
+        f"{out['search_s'][0]:.4f}, {out['search_s'][1]:.4f}; twotier first "
+        f"{out['twotier_first_s']:.4f}, then {out['search_s'][2]:.4f}, {out['search_s'][3]:.4f}; "
+        f"unfused oracle ({ORACLE_QUERIES} queries) {out['unfused_s']:.4f}; heap kernel "
+        f"launches {launches}")
+
+    # 2. Four shards in this process through the per-shard body and the
+    # merge: each shard its own heap kernel launch; the last holds
+    # 100,000 - 3 x 32,768 rows.
+    t0 = time.perf_counter()
+    n_shards = 4
+    shard_cap = 1 << (-(-N_DOCS // n_shards) - 1).bit_length()
+    csr = index.bm25.host_csr()
+    layout = sharding.bm25_twotier_layout(csr, n_shards, shard_cap, index.bm25.config,
+                                          device="cuda")
+    emb = np.zeros((n_shards * shard_cap, DIM), np.float32)
+    emb[:N_DOCS] = index._host_emb[0]
+    emb = torch.from_numpy(emb).to("cuda", torch.bfloat16)
+    q_vecs = retriever.dense_index.embed_queries(queries)
+    qtids = torch.from_numpy(index.bm25.encode_queries(queries)).cuda()
+    qterms = {"qtids": torch.where(qtids < layout["term_row"].shape[0], qtids, -1)}
+    states = [{"emb": sharding.shard_rows(emb, n_shards, j), "size": N_DOCS,
+               **{k: v for k, v in sharding.local_twotier(layout, j).items()
+                  if k in ("low_ranges", "post_packed", "term_row", "impact", "impact_scale")}}
+              for j in range(n_shards)]
+    out["four_layout_s"] = time.perf_counter() - t0
+    out["kernel_cases"] = sharded_kernel_cases(emb, q_vecs, shard_cap)
+    for mode in ("scatter", "twotier"):
+        fn = sharding.make_fused_sharded_query(
+            None, shard_cap, router_module=router.module, k=K, pool=POOL, beam=layout["beam"],
+            approx_topk=False, sparse_mode=mode, nonneg=layout["nonneg"])
+        ck.cuda_cosine_topk.launches = 0
+        (v, i), seconds = timed(lambda: sharding.run_in_process(
+            fn, [(st, q_vecs, qterms) for st in states], (states[0], q_vecs, qterms)))
+        if ck.cuda_cosine_topk.launches != n_shards:
+            raise AssertionError(f"four shards launched {ck.cuda_cosine_topk.launches} kernels")
+        out["four_launches"] = out.get("four_launches", 0) + ck.cuda_cosine_topk.launches
+        out[f"four_{mode}_s"] = seconds
+        hold_to(f"4 shards in one process ({mode}, shard_cap {shard_cap}, last shard "
+                f"{N_DOCS - 3 * shard_cap} rows) vs the one-rank mesh",
+                (v.cpu().numpy(), i.cpu().numpy()), answers[mode])
+    del layout, states, emb
+    torch.cuda.empty_cache()
+
+    # 3. Two gloo ranks on the card (NCCL refuses two ranks on one card).
+    texts = ctx["texts"][:SHARDED_RANK_DOCS]
+    sub_queries = queries[:512]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _spawn_ranks(sharded_rank, 2, (texts, sub_queries, tmp, seed), backend="gloo",
+                     timeout_s=300)
+        out["gloo_ranks_s"] = time.perf_counter() - t0
+        ranks = [dict(np.load(Path(tmp) / f"sharded_{r}.npz")) for r in range(2)]
+    single = HybridRetriever(embedder_config=EmbedderConfig(dim=DIM), device="cuda")
+    single.add_documents([Document(str(i), t) for i, t in enumerate(texts)],
+                         batch_size=SHARDED_BATCH // 2)
+    for got in ranks:
+        if str(got["backend"]) != "gloo" or int(got["launches"]) < 2:
+            raise AssertionError(f"gloo rank: {got['backend']} {got['launches']} launches")
+    for mode in ("scatter", "twotier"):
+        np.testing.assert_array_equal(ranks[1][mode + "_idx"], ranks[0][mode + "_idx"])
+        ref = single.hybrid_search_batch(sub_queries, top_k=K, router=router, approx=False,
+                                         sparse_mode=mode)
+        hold_to(f"2 gloo ranks on {ranks[0]['device']} ({mode}, {SHARDED_RANK_DOCS} passages, "
+                f"shard_cap {int(ranks[0]['shard_cap'])}) vs HybridRetriever",
+                (ranks[0][mode + "_vals"], ranks[0][mode + "_idx"]), ref)
+    out["gloo_launches"] = int(ranks[0]["launches"])
+    log(f"  2 gloo ranks: spawned, built and answered in {out['gloo_ranks_s']:.2f} s, heap "
+        f"kernel launches {out['gloo_launches']} a rank")
+
+    # 4. Live ingest on the one-rank mesh: the delta, no reshard.
+    new_docs, requests = ctx["ingest"]
+    base_emb = state["emb"]
+    _, out["ingest_s"] = timed(lambda: (index.add_documents(new_docs, batch_size=SHARDED_BATCH),
+                                        index.sync()))
+    state = index.sync()
+    if "delta" not in state or state["emb"] is not base_emb or index._base["docs"] != N_DOCS:
+        raise AssertionError("the sharded ingest resharded the corpus")
+    vals, pos = index.search_batch(requests[0][1], top_k=K, pool=POOL, router=router)
+    hits = [[{"doc_id": str(p), "score": float(v)} for v, p in zip(vr, pr)]
+            for vr, pr in zip(vals, pos)]
+    recall = source_recall(requests, [hits], "sharded new passages")
+    log(f"  sharded ingest of {N_INGEST} passages: {out['ingest_s']:.4f} s (add + delta sync, "
+        f"no reshard), source recall@{K} of their queries {recall:.4f}")
+    dist.destroy_process_group()
+    return out
 
 
 def read_jsonl(path: Path, n=None) -> list:
@@ -1852,6 +2148,9 @@ def main() -> int:
         ingest_launches = phase_ingest(ctx)
     with phase("persist"):
         persist_launches, large_launches = phase_persist(ctx)
+    with phase("sharded"):
+        sharded = phase_sharded(ctx, args.seed)
+    torch.cuda.empty_cache()
     with phase("answer"):
         answer = phase_answer()
     torch.cuda.empty_cache()
@@ -1874,6 +2173,9 @@ def main() -> int:
     row["launches"] = ctx["launches"]
     row["launches_by_path"] = {"scatter": ctx["launches"], "twotier": twotier_launches,
                                "ingest": ingest_launches, "persist_http": persist_launches,
+                               "sharded": sharded["launches"],
+                               "sharded_four_shards_in_process": sharded["four_launches"],
+                               "sharded_gloo_rank": sharded["gloo_launches"],
                                "answer": answer["launches"],
                                "answer_recall": answer["recall_launches"],
                                "train_router_data": train["router"]["kernel_launches"],
@@ -1881,6 +2183,8 @@ def main() -> int:
                                "eval": evaluation["launches"],
                                "pipeline": pipeline["launches"]}
     row["eval_shapes"] = evaluation.pop("kernel_shapes")
+    row["sharded_shapes"] = sharded.pop("kernel_cases")
+    row["sharded_phase"] = sharded
     row["eval_phase"] = evaluation
     row["pipeline_phase"] = pipeline
     row["profile_stages_ms"] = profile["stages_ms"]

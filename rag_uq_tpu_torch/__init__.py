@@ -1,8 +1,7 @@
 """PyTorch and CUDA port of ``rag_uq_tpu``, for NVIDIA Hopper (H100).
 
 The package mirrors the JAX package's module paths and public names
-(``rag_uq_tpu/__init__.py``; ``ShardedHybridIndex`` waits for the
-multi-device slice). Importing it builds and launches nothing: kernels and
+(``rag_uq_tpu/__init__.py``). Importing it builds and launches nothing: kernels and
 the native tokenizer are built at first use. Entry points take ``device``
 ("cuda" by default) and raise when no card is present and the caller did
 not ask for the CPU.
@@ -24,6 +23,7 @@ from rag_uq_tpu_torch.index.dense import DenseIndex
 from rag_uq_tpu_torch.index.sparse import BM25Index
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever
 from rag_uq_tpu_torch.index.build import StreamingIndex
+from rag_uq_tpu_torch.parallel.sharded_index import ShardedHybridIndex
 from rag_uq_tpu_torch.uq.mc import MCDropoutConfidence
 from rag_uq_tpu_torch.uq.conformal import ConformalRAG
 from rag_uq_tpu_torch.uq.hybrid import HybridConfidence
@@ -52,6 +52,7 @@ __all__ = [
     "BM25Index",
     "HybridRetriever",
     "StreamingIndex",
+    "ShardedHybridIndex",
     "MCDropoutConfidence",
     "ConformalRAG",
     "HybridConfidence",

@@ -9,6 +9,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 
 @dataclass
 class Document:
@@ -48,6 +50,30 @@ class RetrievalResult:
     hybrid_score: Optional[float] = None
     title: Optional[str] = None
     metadata: Optional[Dict[str, Any]] = None
+
+
+@dataclass
+class QueryBatchResult:
+    """Device-side batched retrieval result (array-of-structs).
+
+    `indices` are positions into the index's document table; `-1` marks an
+    invalid slot (fewer than k live hits).
+    """
+
+    scores: np.ndarray  # [B, K] float32
+    indices: np.ndarray  # [B, K] int32
+
+    def __post_init__(self) -> None:
+        self.scores = np.asarray(self.scores)
+        self.indices = np.asarray(self.indices)
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.scores.shape[0])
+
+    @property
+    def k(self) -> int:
+        return int(self.scores.shape[1])
 
 
 @dataclass

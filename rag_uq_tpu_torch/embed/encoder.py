@@ -120,3 +120,13 @@ class TransformerEmbedder:
         ids, lengths = hash_texts(texts, self.config.vocab_buckets, self.config.max_seq_len)
         out = self.encode_device(torch.from_numpy(ids), torch.from_numpy(lengths))
         return out.cpu().numpy()
+
+    def encode_mesh(self, texts: Sequence[str], mesh) -> np.ndarray:
+        """Batch embedding data-parallel over the mesh (``encode_on_mesh``):
+        the forward runs on every rank's slice of the batch."""
+        from rag_uq_tpu_torch.embed.base import encode_on_mesh
+
+        cfg = self.config
+        return encode_on_mesh(
+            self.encode_device, lambda ts: hash_texts(ts, cfg.vocab_buckets, cfg.max_seq_len),
+            texts, mesh)

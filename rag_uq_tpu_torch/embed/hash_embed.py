@@ -116,3 +116,9 @@ class NgramHashEmbedder:
         ids, lengths = self._hash_batch(texts)
         out = self.encode_device(torch.from_numpy(ids), torch.from_numpy(lengths))
         return out.cpu().numpy()
+
+    def encode_mesh(self, texts: Sequence[str], mesh) -> np.ndarray:
+        """Batch embedding data-parallel over the mesh (``encode_on_mesh``)."""
+        from rag_uq_tpu_torch.embed.base import encode_on_mesh
+
+        return encode_on_mesh(self.encode_device, self._hash_batch, texts, mesh)

@@ -18,8 +18,11 @@ same batches. ``EncoderTrainConfig``, ``synthesize_pairs`` and
 A checkpoint is ``<path>`` (flax msgpack of ``{"params": ...}``) and
 ``<path>.json`` (encoder and train configs, the last losses, the step
 count), the files the JAX trainer writes; either package loads the
-other's. The data-parallel train step (``make_train_step(mesh)``) waits for
-the multi-device slice.
+other's. ``make_train_step(mesh)`` gives the data-parallel step: each rank
+runs the tower on its slice of the pairs, the embeddings are all-gathered
+with autograd for the global ``[B, B]`` logits (global negatives), and the
+gradients are summed over the mesh before the clip and AdamW, so the update
+is the single-device one.
 """
 
 from __future__ import annotations
@@ -31,10 +34,13 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 
 from rag_uq_tpu_torch.convert import encoder_to_flax, load_encoder
 from rag_uq_tpu_torch.core.device import DeviceLike
+from rag_uq_tpu_torch.core.mesh import mesh_rank
 from rag_uq_tpu_torch.embed.encoder import EncoderConfig, TransformerEmbedder
 from rag_uq_tpu_torch.text.tokenize import hash_texts, tokenize
 from rag_uq_tpu_torch.utils.checkpoint import load_flax_checkpoint, save_flax_checkpoint
@@ -192,6 +198,63 @@ class ContrastiveTrainer:
         loss = loss.item()
         self.losses.append(loss)
         return loss
+
+    def backward_on_mesh(self, q_ids, q_len, p_ids, p_len, mesh) -> float:
+        """The global loss of one batch, its gradient left in every
+        parameter's ``.grad`` on every rank, computed data-parallel.
+
+        Each rank runs the tower on its ``B / S`` rows of the queries and of
+        the passages; ``torch.distributed.nn``'s all-gather brings every
+        rank's embeddings to every rank with autograd, and each rank takes
+        only its own rows of the two cross-entropies over the global
+        ``[B, B]`` logits (the negatives stay global). The all-gather's
+        backward sums every rank's loss into each rank's slice, and summing
+        the parameter gradients over the mesh then gives the gradient of
+        the whole loss: no rank counts another's rows. B must divide by S.
+        """
+        n_ranks, r = mesh.size(), mesh_rank(mesh)
+        bsz = len(q_ids)
+        if bsz % n_ranks:
+            raise ValueError(f"batch {bsz} does not divide into {n_ranks} ranks")
+        per = bsz // n_ranks
+        rows = slice(r * per, (r + 1) * per)
+        local = [torch.as_tensor(np.asarray(a)[rows]).to(self.device)
+                 for a in (q_ids, q_len, p_ids, p_len)]
+        emb = self.model(torch.cat([local[0], local[2]]), torch.cat([local[1], local[3]]))
+        group = mesh.get_group()
+        q_all = torch.cat(dist_nn.all_gather(emb[:per].contiguous(), group=group))  # [B, D]
+        p_all = torch.cat(dist_nn.all_gather(emb[per:].contiguous(), group=group))
+        inv_tau = 1.0 / self.config.temperature
+        labels = torch.arange(r * per, (r + 1) * per, device=emb.device)
+        l_qp = F.cross_entropy((emb[:per] @ p_all.T) * inv_tau, labels, reduction="sum")
+        l_pq = F.cross_entropy((emb[per:] @ q_all.T) * inv_tau, labels, reduction="sum")
+        loss = (l_qp + l_pq) / (2.0 * bsz)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.optimizer.params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        for p, g in zip(self.optimizer.params, flat.split([g.numel() for g in grads])):
+            p.grad = g.view_as(p)
+        total = loss.detach().reshape(1)
+        dist.all_reduce(total, group=group)
+        return float(total.item())
+
+    def make_train_step(self, mesh=None) -> Callable:
+        """The train step ``(q_ids, q_len, p_ids, p_len) -> loss``: the
+        single-device ``train_step``, or with ``mesh`` the data-parallel step
+        (``backward_on_mesh``, then the clip and AdamW on every rank alike,
+        so the replicated parameters stay equal)."""
+        if mesh is None:
+            return self.train_step
+
+        def step(q_ids, q_len, p_ids, p_len) -> float:
+            loss = self.backward_on_mesh(q_ids, q_len, p_ids, p_len, mesh)
+            self.optimizer.step()
+            self.losses.append(loss)
+            return loss
+
+        return step
 
     # -- data + loop ---------------------------------------------------------------
 

@@ -5,7 +5,8 @@ A fresh interpreter installs a meta-path finder that refuses ``jax``,
 and ``rouge_score``, ``nltk`` and ``matplotlib``, which the card's machine
 does not have (the port computes ROUGE-L itself, and its plots import
 matplotlib inside the function that draws), then imports every module of
-``rag_uq_tpu_torch`` and ``chip_smoke.py`` (imports only: nothing runs).
+``rag_uq_tpu_torch``, ``chip_smoke.py`` and ``tests/test_torch_spawn.py``
+(the programs the multi-rank tests spawn; imports only: nothing runs).
 The test fails on any attempt to import a refused name, caught or not, and
 on any refused module found loaded.
 """
@@ -37,9 +38,9 @@ modules = ["rag_uq_tpu_torch"]
 for info in pkgutil.walk_packages(rag_uq_tpu_torch.__path__, "rag_uq_tpu_torch."):
     importlib.import_module(info.name)
     modules.append(info.name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-importlib.util.module_from_spec(spec)
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name, path in (("chip_smoke", "chip_smoke.py"), ("rank_programs", "tests/test_torch_spawn.py")):
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": modules, "attempts": attempts, "loaded": loaded}))
 """
@@ -61,5 +62,7 @@ def test_port_and_chip_smoke_import_no_jax():
                  "rag_uq_tpu_torch.data.verify", "rag_uq_tpu_torch.data.wikipedia",
                  "rag_uq_tpu_torch.cli.doctor", "rag_uq_tpu_torch.cli.warmup",
                  "rag_uq_tpu_torch.cli.profile_fused", "rag_uq_tpu_torch.models",
-                 "rag_uq_tpu_torch.text.porter", "rag_uq_tpu_torch.examples.quickstart"):
+                 "rag_uq_tpu_torch.text.porter", "rag_uq_tpu_torch.examples.quickstart",
+                 "rag_uq_tpu_torch.core.mesh", "rag_uq_tpu_torch.parallel.sharding",
+                 "rag_uq_tpu_torch.parallel.sharded_index", "rag_uq_tpu_torch.cli.bench_sharded"):
         assert name in out["modules"]

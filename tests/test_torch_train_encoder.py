@@ -8,6 +8,18 @@ relative (summation order only); at bf16 the jitted XLA step rounds in
 another order than eager PyTorch, so five steps' losses are held within
 1e-2 relative. Checkpoints cross bit for bit; the numpy pair generators are
 the JAX functions' copies.
+
+The data-parallel step (``make_train_step(mesh)``, four spawned gloo ranks,
+``tests/test_torch_spawn.py::train_program``) against the single-device
+step from the same initial weights, in float32 (in bf16 each rank's partial
+weight gradients round apart, about 1% here): the summed gradients within 1e-5 of
+the global gradient norm (a gradient counted once a rank, S times over,
+fails this; Adam's update alone would not show it), the loss within 1e-6
+relative, and after two steps at the peak learning rate the losses within
+1e-6 relative and every parameter whose gradient is more than rounding
+noise within 1e-4, every rank's parameters equal (JAX holds its DP step to
+the loss within 1e-3 and the first parameter leaf within 1e-4,
+``tests/test_encoder_train.py:137-169``).
 """
 
 import json
@@ -25,11 +37,14 @@ from rag_uq_tpu.embed import train as jax_train
 from rag_uq_tpu.embed.encoder import EncoderConfig as JaxEncoderConfig
 from rag_uq_tpu_torch.cli import train_encoder as port_cli
 from rag_uq_tpu_torch.convert import encoder_to_flax, load_encoder
+from rag_uq_tpu_torch.core.mesh import _spawn_ranks
 from rag_uq_tpu_torch.core.flax_nn import flax_tree
 from rag_uq_tpu_torch.data.synth_wiki import generate_world
 from rag_uq_tpu_torch.embed import train as port_train
 from rag_uq_tpu_torch.embed.encoder import EncoderConfig, TransformerEmbedder
 from rag_uq_tpu_torch.utils.checkpoint import write_msgpack
+
+from tests.test_torch_spawn import dp_trainer, train_program
 
 TINY = dict(dim=32, num_layers=1, num_heads=2, mlp_dim=64, max_seq_len=32, vocab_buckets=2048)
 TRAIN = dict(learning_rate=3e-3, warmup_steps=2, total_steps=10, batch_size=16, seed=0)
@@ -167,3 +182,35 @@ def test_cli_end_to_end(tmp_path):
     assert meta["n_steps"] == 3 and meta["encoder_config"]["dim"] == 32
     again = port_train.load_encoder_checkpoint(str(out / "encoder.msgpack"), device="cpu")
     assert isinstance(again, TransformerEmbedder) and again.encode(["a b"]).shape == (1, 32)
+
+
+DP_RANKS = 4
+
+
+def test_data_parallel_step_equals_the_single_device_step(world, tmp_path):
+    trainer = dp_trainer()
+    batches = [trainer.encode_pairs(*_pairs(world, n=16, offset=o)) for o in (0, 16)]
+    _spawn_ranks(train_program, DP_RANKS, (batches, str(tmp_path)))
+    ranks = [dict(np.load(tmp_path / f"train_{r}.npz")) for r in range(DP_RANKS)]
+
+    loss = trainer.loss(*(torch.from_numpy(a) for a in batches[0]))
+    loss.backward()
+    grads = [p.grad.numpy().copy() for p in trainer.optimizer.params]
+    trainer.optimizer.opt.zero_grad(set_to_none=True)
+    norm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum()) for g in grads))
+    losses = [trainer.train_step(*b) for b in batches]
+    params = [p.detach().numpy() for p in trainer.optimizer.params]
+    # Leaves whose gradient is more than rounding noise: the attention key
+    # bias has none in exact arithmetic, and Adam moves a leaf by about the
+    # learning rate whatever the sign of its noise.
+    moved = [j for j, g in enumerate(grads) if np.abs(g).max() > 1e-4 * norm]
+    assert 0 in moved and len(moved) >= len(grads) - 2
+    for got in ranks:
+        assert abs(float(got["loss0"]) - loss.item()) <= 1e-6 * loss.item()
+        for j, g in enumerate(grads):
+            assert np.abs(got[f"grad_{j}"] - g).max() <= 1e-5 * norm, j
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-6)
+        for j in moved:
+            np.testing.assert_allclose(got[f"param_{j}"], params[j], atol=1e-4, rtol=0)
+        for j in range(len(grads)):
+            np.testing.assert_array_equal(got[f"param_{j}"], ranks[0][f"param_{j}"])
