@@ -142,13 +142,40 @@ Phases, each printing one line "phase <name> ok <seconds>":
            pools, router val hit@1 >= 0.80, evaluation MRR >= 0.60 and exact
            match >= 0.45; its timings printed;
   profile  cli/profile_fused.py at bench.py's shape, 3 launches a stage
-           (CUDA events), printed stage by stage.
+           (CUDA events), printed stage by stage;
+  serving_bench
+           cli/bench_serving.py's run_bench, as its main runs it: the
+           20,000-passage corpus in a HybridRetriever (D = 768 bf16), the
+           warm-up of batches 1-256, the device round-trip floor, then
+           QueryService(tick_ms=2.0, dispatch_workers=4) under closed-loop
+           clients at concurrency 1, 8, 32 and 128, 3 s a level (cut from
+           15), each level's JSON printed: no errors, requests and device
+           batches at every level, mean batch > 1 at 128, the heap kernel
+           launched at least once a device batch, and 512 answers served at
+           128 (recorded by a wrapper around service.search) equal to
+           direct searches under the tie rule, none empty; then the heap
+           kernel against its plain twin at the batches the micro-batcher
+           forms (B = 1, 8, 64, 256, k = 50 over the 20,000 live rows),
+           timed beside its bound and torch.matmul + torch.topk;
+  parity   cli/parity.py's run_parity(skip_reference=True) at its defaults
+           (500 queries, 20 epochs): finite losses, hit@1 >= 0.40 (the JAX
+           artifact's 0.55 printed beside); cli/parity_e2e.py's
+           _run_our_retrieval at its defaults (4,000 articles, 800
+           held-out questions, Sha256Embedder(dim=384), k = 10) on the card
+           and on the CPU, held together under the tie rule with every
+           score from the CPU's retriever, recall@1/10 and MRR printed beside
+           the JAX artifact's, and the heap kernel against its twin at that
+           arm's shapes (k = 10 and 50); the conformal arm, ConformalRAG
+           over 1,000 span-echo calibration triples at alpha 0.1, then
+           _coverage over 2,000: the threshold strictly inside (0, 1) and
+           equal to numpy's quantile within 1e-6, at least 20 distinct
+           calibration scores, coverage >= 0.87.
 
 Each of the five serving paths, the three sharded paths, the two kernel
-paths of the train phase and the eval and pipeline paths runs with the
-kernel's launch counts set to 0 just before it and fails if the dense
-kernel was not launched in it (the persist path also if the large-k
-kernels were not). Then every number the
+paths of the train phase, the eval and pipeline paths, the serving bench's
+levels and the parity retrieval arm runs with the kernel's launch counts
+set to 0 just before it and fails if the dense kernel was not launched in
+it (the persist path also if the large-k kernels were not). Then every number the
 train phase recorded, one "train <key> <value>" line each, one JSON line
 {"kernels": [...]}, a row for the heap kernel and one for the large-k
 kernels, and, last, {"ok": true, "device": ...}.
@@ -179,8 +206,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from rag_uq_tpu_torch.cli import bench_serving as bench_serving_cli
 from rag_uq_tpu_torch.cli import doctor as doctor_cli
 from rag_uq_tpu_torch.cli import evaluate as evaluate_cli
+from rag_uq_tpu_torch.cli import parity as parity_cli
+from rag_uq_tpu_torch.cli import parity_e2e as parity_e2e_cli
 from rag_uq_tpu_torch.cli import profile_fused as profile_fused_cli
 from rag_uq_tpu_torch.cli import run_pipeline as run_pipeline_cli
 from rag_uq_tpu_torch.cli import serve as serve_mod
@@ -191,15 +221,18 @@ from rag_uq_tpu_torch.cli import warmup as warmup_cli
 from rag_uq_tpu_torch.cli.bench_sharded import tie_aware_agreement
 from rag_uq_tpu_torch.cli.evaluate import build_qa_prompt
 from rag_uq_tpu_torch.cli.serve import QueryService, serve_http
+from rag_uq_tpu_torch.cli.train_encoder import split_by_entity
 from rag_uq_tpu_torch.core.config import (
     BM25Config, DenseIndexConfig, EmbedderConfig, RouterConfig, TrainConfig, router_recipe_v2,
 )
 from rag_uq_tpu_torch.core.mesh import _spawn_ranks, make_mesh
 from rag_uq_tpu_torch.core.types import Document
 from rag_uq_tpu_torch.data.loaders import load_qa_jsonl
+from rag_uq_tpu_torch.data.synth_wiki import generate_world
 from rag_uq_tpu_torch.embed.encoder import EncoderConfig, TransformerEmbedder
 from rag_uq_tpu_torch.embed.hash_embed import Sha256Embedder
 from rag_uq_tpu_torch.embed.train import EncoderTrainConfig, load_encoder_checkpoint
+from rag_uq_tpu_torch.eval.evaluator import RAGEvaluator
 from rag_uq_tpu_torch.eval.metrics import exact_match
 from rag_uq_tpu_torch.index.dense import DenseIndex
 from rag_uq_tpu_torch.llm.tiny_lm import TinyLM, TinyLMConfig
@@ -211,6 +244,7 @@ from rag_uq_tpu_torch.ops import cosine_topk as ck
 from rag_uq_tpu_torch.parallel import sharding
 from rag_uq_tpu_torch.parallel.sharded_index import ShardedHybridIndex
 from rag_uq_tpu_torch.retrieval import fused as fused_mod
+from rag_uq_tpu_torch.retrieval import hybrid as hybrid_mod
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever
 from rag_uq_tpu_torch.router.model import RetrievalRouter
 from rag_uq_tpu_torch.router.train import RouterTrainer, load_router_checkpoint
@@ -270,6 +304,21 @@ PIPELINE_ARTIFACTS = ("pipeline_summary.json", "encoder/encoder.msgpack",
                       "results/evaluation_results.json", "results/predictions.jsonl",
                       "results/ablation/ablation_results.json")
 MIN_PIPELINE_MRR, MIN_PIPELINE_EM = 0.60, 0.45
+# The serving_bench phase: cli/bench_serving.py at its corpus (20,000
+# passages, D = 768 bf16, pool 50, k = 10), levels, tick and dispatchers;
+# cut: 3 s a level, not 15. The served answers held to direct searches,
+# and the heap kernel alone at the batches the micro-batcher forms.
+SERVING_DOCS, SERVING_SECONDS, SERVING_LEVELS = 20_000, 3.0, (1, 8, 32, 128)
+SERVING_SAMPLE, SERVED_BATCHES = 512, (1, 8, 64, 256)
+# The parity phase: cli/parity.py at its defaults (500 queries, 20 epochs)
+# and cli/parity_e2e.py's port arms at its defaults (4,000 articles, 800
+# held-out questions, k = 10, 1,000 calibration and 2,000 test triples,
+# alpha 0.1); the JAX package's artifacts, printed beside for information.
+PARITY_ARTICLES, PARITY_QUERIES, PARITY_K, PARITY_CAL, PARITY_TEST, PARITY_ALPHA = (
+    4000, 800, 10, 1000, 2000, 0.1)
+MIN_PARITY_HIT, MIN_DISTINCT_SCORES, COVERAGE_SLACK = 0.40, 20, 0.03
+JAX_ROUTER_PARITY, JAX_E2E_PARITY = Path("runs/parity/router_parity.json"), Path(
+    "runs/parity/e2e_parity.json")
 
 
 @contextlib.contextmanager
@@ -1691,30 +1740,31 @@ def kernel_name(name: str) -> str:
     return f"{base}/{inner[-1]}" if inner else base
 
 
-def demo_index_kernel_case(what: str, index, questions, k: int) -> dict:
-    """The heap kernel against its plain twin (under the tie rule) on the
-    demo index's live D = 256 rows, for these questions' vectors, then timed
-    with CUDA events beside the plain twin and torch.matmul + torch.topk, and
-    its bound: the larger of the bf16 products at the peak rate and the
+def index_kernel_case(what: str, index, questions, k: int) -> dict:
+    """The heap kernel against its plain twin (under the tie rule) on a
+    DenseIndex's live rows, for these questions' vectors, then timed with
+    CUDA events beside the plain twin and torch.matmul + torch.topk, and
+    its bound: the larger of the products at the bf16 peak rate and the
     bytes (the live rows, the f32 queries, the values and indices out) at
     the memory rate."""
     q = index.embed_queries(questions)
     size, emb = len(index), index._emb
+    dim = emb.shape[1]
     kv, ki = ck.cuda_cosine_topk(emb, q, size, k)
     pv, pi = ck.cosine_topk_plain(emb, q, size, k)
     err = check_topk(kv, ki, pv, pi, f"{what}: B={len(q)} k={k} over {size} live rows "
-                     f"D={ENCODER_DIM}", KERNEL_ATOL,
+                     f"D={dim}", KERNEL_ATOL,
                      lambda ids: torch.matmul(q[ids].to(emb.dtype).float(), emb[:size].float().T))
     ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, size, k), reps=50)
     plain_ms = cuda_ms(lambda: ck.cosine_topk_plain(emb, q, size, k), reps=5)
     q16 = q.to(emb.dtype)
     library_ms = cuda_ms(lambda: torch.topk(torch.matmul(q16, emb[:size].T), k), reps=50)
-    t_ops = 2.0 * len(q) * size * ENCODER_DIM / PEAK_BF16_FLOPS * 1e3
-    t_bytes = (size * ENCODER_DIM * 2 + q.numel() * 4 + len(q) * k * 8) / PEAK_BYTES_S * 1e3
-    out = {"B": len(q), "k": k, "live_rows": size, "max_abs_err": err, "ms": ms,
+    t_ops = 2.0 * len(q) * size * dim / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (size * dim * emb.element_size() + q.numel() * 4 + len(q) * k * 8) / PEAK_BYTES_S * 1e3
+    out = {"B": len(q), "k": k, "live_rows": size, "dim": dim, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    log(f"  heap kernel at {what} (B = {len(q)}, k = {k}, {size} live D = {ENCODER_DIM} "
+    log(f"  heap kernel at {what} (B = {len(q)}, k = {k}, {size} live D = {dim} "
         f"rows): max_abs_err {err:.3g}, tie-aware agreement 1.0; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
         f"({out['bound_by']})")
@@ -1954,7 +2004,7 @@ def phase_train(fixture, device: str = "cuda") -> dict:
     router_rows = qa[ROUTER_ROWS[0] : ROUTER_ROWS[1]]
 
     index = retriever.dense_index
-    timing = demo_index_kernel_case(
+    timing = index_kernel_case(
         "the router data path's shape", index,
         [r["question"] for r in router_rows[:ROUTER_DATA_BATCH]], POOL)
     err = timing.pop("max_abs_err")
@@ -2003,7 +2053,7 @@ def phase_eval(device: str = "cuda") -> dict:
     lm = load_lm_checkpoint(str(DEMO_LM), device=device)
     # The retrieval chunks of _predict_batch: 128 questions, then the ragged rest.
     chunk = 128
-    shapes = [demo_index_kernel_case(f"the evaluation's retrieval chunk {i}", retriever.dense_index,
+    shapes = [index_kernel_case(f"the evaluation's retrieval chunk {i}", retriever.dense_index,
                                      [r["question"] for r in test[lo : lo + chunk]], POOL)
               for i, lo in enumerate(range(0, len(test), chunk))]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2115,6 +2165,273 @@ def phase_profile(device: str = "cuda") -> dict:
     return out
 
 
+def phase_serving_bench(seed: int, device: str = "cuda") -> dict:
+    """cli/bench_serving.py's run_bench on the card: its corpus, a
+    HybridRetriever, the warm-up of batches 1-256, the round-trip floor, then
+    QueryService(tick_ms=2.0, dispatch_workers=4) under closed-loop clients
+    at each level. The launch counts are set to 0 before the first level, the
+    concurrency-128 level's answers are recorded by a wrapper around
+    service.search and a sample held to direct searches; then the heap kernel
+    is held to its twin and timed at the served batches."""
+    served, lock = [], threading.Lock()
+
+    def before_level(service, c):
+        if c == SERVING_LEVELS[0]:
+            ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+        if c == SERVING_LEVELS[-1]:
+            search = service.search
+
+            def recorded(qs, k=10):
+                hits = search(qs, k=k)
+                with lock:
+                    served.append((qs[0], hits[0]))
+                return hits
+
+            service.search = recorded
+
+    bench, retriever, queries = bench_serving_cli.run_bench(
+        SERVING_DOCS, SERVING_SECONDS, SERVING_LEVELS, 2.0, 4, device, before_level)
+    launches = ck.cuda_cosine_topk.launches
+    levels = bench["levels"]
+    for lv in levels:
+        log(json.dumps(lv))
+    rtt = {key: bench[key] for key in ("relay_rtt_floor_ms_p50", "relay_rtt_floor_ms_mean",
+                                       "n_probes")}
+    log(f"  corpus of {SERVING_DOCS} passages indexed in {bench['index_build_seconds']} s; "
+        f"device round-trip floor {json.dumps(rtt)}")
+    shapes = [index_kernel_case(f"a served batch of {b}", retriever.dense_index, queries[:b], POOL)
+              for b in SERVED_BATCHES]
+    index = retriever.dense_index
+    for shape, b in zip(shapes, SERVED_BATCHES):  # device time apart from the host's
+        q = index.embed_queries(queries[:b])
+        wall, busy, ops, heavy = profiled(
+            lambda: [ck.cuda_cosine_topk(index._emb, q, len(index), POOL) for _ in range(20)], top=3)
+        shape["profiled"] = {"host_ms": wall / 20 * 1e3, "device_busy_ms": busy / 20 * 1e3,
+                             "device_ops": ops / 20,
+                             "kernels_ms": {n: t / 20 * 1e3 for n, t in heavy}}
+        log(f"    B = {b} under torch.profiler, a launch: {json.dumps(shape['profiled'])}")
+    batches = sum(lv.get("device_batches", 0) for lv in levels)
+    bad = [lv for lv in levels if lv["errors"] or not lv["requests"] or not lv.get("device_batches")]
+    if bad:
+        raise AssertionError(f"serving levels with errors, no requests or no batches: {bad}")
+    if levels[-1]["mean_batch_size"] <= 1.0:
+        raise AssertionError(f"no batching at concurrency {SERVING_LEVELS[-1]}: {levels[-1]}")
+    if launches < batches:
+        raise AssertionError(f"the heap kernel ran {launches} times for {batches} device batches")
+    rng = np.random.default_rng(seed)
+    sample = [served[i] for i in rng.choice(len(served), min(SERVING_SAMPLE, len(served)),
+                                            replace=False)]
+    if len(sample) < 256 or not all(hits for _, hits in sample):
+        raise AssertionError(f"{len(sample)} sampled answers, "
+                             f"{sum(not h for _, h in sample)} empty")
+    dv, dp = retriever.hybrid_search_batch([q for q, _ in sample], top_k=K, sparse_mode="scatter")
+    sp = id_positions(retriever, [[h["doc_id"] for h in hits] for _, hits in sample], K)
+    sv = np.asarray([[h["score"] for h in hits] + [-np.inf] * (K - len(hits))
+                     for _, hits in sample], dtype=np.float32)
+    agree = tie_aware_agreement(sv, sp, np.where(dp >= 0, dv, -np.inf), dp)
+    log(f"  {len(sample)} of the {len(served)} answers served at concurrency "
+        f"{SERVING_LEVELS[-1]} against direct searches: raw {agree['raw_idx_agreement']:.6f}, "
+        f"tie-aware {agree['tie_aware_agreement']:.6f}; heap kernel launches {launches} for "
+        f"{batches} device batches")
+    if agree["tie_aware_agreement"] != 1.0:
+        raise AssertionError(f"served answers differ from direct searches: "
+                             f"{json.dumps(agree['violations'][:2])[:2000]}")
+    return {"launches": launches, "device_batches": batches, "levels": levels, **rtt,
+            "index_build_s": bench["index_build_seconds"], "sampled_answers": len(sample),
+            "kernel_shapes": shapes}
+
+
+def recording_retrievers():
+    """Patch ``hybrid.HybridRetriever`` so each instance it makes is kept and
+    every union pool its ``pooled_scores_batch`` forms is recorded: (the
+    patcher, the instances, the pools). The card's BM25 scatter-add sums in
+    another order on every run, so a pool formed again may differ at a cut
+    tie from the one a search used."""
+    made, pools = [], []
+
+    class Recording(hybrid_mod.HybridRetriever):
+        def pooled_scores_batch(self, *args, **kwargs):
+            out = super().pooled_scores_batch(*args, **kwargs)
+            pools.append(out[0])
+            return out
+
+    def make(*args, **kwargs):
+        made.append(Recording(*args, **kwargs))
+        return made[-1]
+
+    return mock.patch.object(hybrid_mod, "HybridRetriever", make), made, pools
+
+
+def id_positions(retriever, id_rows, k: int) -> np.ndarray:
+    """[B, k] row positions of the listed doc ids, -1 past a short list."""
+    pos_of = {doc_id: i for i, doc_id in enumerate(retriever.documents.ids)}
+    pos = np.full((len(id_rows), k), -1, dtype=np.int32)
+    for i, row in enumerate(id_rows):
+        pos[i, : len(row)] = [pos_of[d] for d in row]
+    return pos
+
+
+def exact_scores(retriever, questions, arm: str, pos: np.ndarray) -> np.ndarray:
+    """The arm's score of each position on ``retriever`` (the CPU's): the
+    dense cosine or the exact BM25 score; -inf at -1."""
+    index = retriever.dense_index if arm == "dense" else retriever.bm25_index
+    return np.where(pos >= 0, index.score_positions_batch(questions, pos), -np.inf)
+
+
+def fused_over_pool(retriever, questions, pool: np.ndarray) -> np.ndarray:
+    """get_scores_for_router_batch's fixed fusion of a union pool's members,
+    every score exact on ``retriever``; -inf at dead slots."""
+    live = pool >= 0
+    b = np.where(live, exact_scores(retriever, questions, "bm25", pool), 0.0)
+    d = np.where(live, exact_scores(retriever, questions, "dense", pool), 0.0)
+    max_b = np.maximum(np.where(live, b, -np.inf).max(axis=1), 1e-12)
+    max_d = np.maximum(np.where(live, d, -np.inf).max(axis=1), 1e-12)
+    return np.where(live, (b / max_b[:, None] + d / max_d[:, None]) / 2.0, -np.inf)
+
+
+def pool_cut_ties(cpu, questions, card_pool: np.ndarray, cpu_pool: np.ndarray,
+                  rtol: float = 1e-5) -> int:
+    """Union pools of the card and the CPU may differ only by docs that tie
+    the dense or the BM25 pool's cut (the 50th score, on the CPU) within
+    rtol: raises on any other member; returns how many tied docs differ."""
+    cut_d = cpu.dense_index.search_batch(questions, top_k=POOL)[0][:, -1]
+    cut_b = cpu.bm25_index.search_batch(questions, top_k=POOL)[0][:, -1]
+    tied = 0
+    for i, q in enumerate(questions):
+        diff = sorted((set(card_pool[i]) ^ set(cpu_pool[i])) - {-1})
+        if not diff:
+            continue
+        pos = np.asarray([diff], dtype=np.int32)
+        d = exact_scores(cpu, [q], "dense", pos)[0]
+        b = exact_scores(cpu, [q], "bm25", pos)[0]
+        ok = (np.abs(d - cut_d[i]) <= rtol * abs(cut_d[i])) | \
+             (np.abs(b - cut_b[i]) <= rtol * max(abs(cut_b[i]), 1e-12))
+        if not ok.all():
+            raise AssertionError(f"question {i}: union pools differ by docs off both cuts: "
+                                 f"{[int(x) for x in pos[0][~ok]]} (dense {d[~ok]}, cut "
+                                 f"{cut_d[i]}; BM25 {b[~ok]}, cut {cut_b[i]})")
+        tied += len(diff)
+    return tied
+
+
+def phase_parity(device: str = "cuda") -> dict:
+    """cli/parity.py's router arm and cli/parity_e2e.py's port arms on the
+    card: the router trained at run_parity's defaults; _run_our_retrieval
+    with Sha256Embedder(dim=384) on the card and on the CPU, held together
+    under the tie rule (every score from the CPU's retriever), with the
+    heap kernel held to its twin at the arm's shapes; the conformal arm
+    over span-echo triples, whose scores are spread out."""
+    with tempfile.TemporaryDirectory() as tmp:
+        report, router_s = timed(lambda: parity_cli.run_parity(
+            skip_reference=True, device=device, output_path=f"{tmp}/router_parity.json"))
+    ours, jax_ours = report["ours"], json.loads(JAX_ROUTER_PARITY.read_text())["ours"]
+    log(f"  router parity (ours arm, {report['dataset']}): {json.dumps(ours)} in "
+        f"{router_s:.2f} s; the JAX artifact's ours arm: val_hit_at_1 "
+        f"{jax_ours['val_hit_at_1']}, final_val_loss {jax_ours['final_val_loss']:.4f}")
+    losses = (ours["final_train_loss"], ours["final_val_loss"], ours["val_hit_at_1"])
+    if not all(math.isfinite(x) for x in losses) or ours["val_hit_at_1"] < MIN_PARITY_HIT \
+            or ours["impl"] != f"rag_uq_tpu_torch ({device})":
+        raise AssertionError(f"router parity arm: {ours}")
+
+    world = generate_world(PARITY_ARTICLES, seed=0)
+    rows = world.corpus_rows()
+    train_qa, held_qa = split_by_entity(world.qa_rows(), 0.1)
+    held_qa = held_qa[:PARITY_QUERIES]
+    questions, gold = [q["question"] for q in held_qa], [q["gold_doc_ids"] for q in held_qa]
+    arms, made, pools, launches = {}, {}, {}, 0
+    for side, dev in (("card", device), ("cpu", "cpu")):
+        patcher, made[side], pools[side] = recording_retrievers()
+        ck.cuda_cosine_topk.launches = ck.cuda_cosine_topk.large_launches = 0
+        with patcher:
+            arms[side], wall = timed(lambda: parity_e2e_cli._run_our_retrieval(
+                rows, questions, PARITY_K, Sha256Embedder(dim=384), device=dev))
+        if side == "card":
+            launches = ck.cuda_cosine_topk.launches
+        log(f"  _run_our_retrieval on {dev}: {len(rows)} passages, {len(questions)} "
+            f"questions in {wall:.2f} s (build {arms[side]['build_s']} s, first pass "
+            f"{arms[side]['compile_s']} s, query {arms[side]['query_s']} s)")
+    if launches < 1:
+        raise AssertionError("the parity retrieval arm did not launch the heap kernel")
+    card_index, cpu = made["card"][0].dense_index, made["cpu"][0]
+    shapes = [index_kernel_case(f"the parity retrieval arm, k = {k}", card_index, questions, k)
+              for k in (PARITY_K, POOL)]
+    # dense_only and bm25_only: both sides' lists scored on the CPU, under the
+    # tie rule. hybrid: the union pools (each side's last, the timed pass
+    # that gave its lists) may differ only by docs tied at a pool's cut; the
+    # card's ranking is held to the CPU's fusion of the card's own pool.
+    card_pool = pools["card"][-1]
+    tied = pool_cut_ties(cpu, questions, card_pool, pools["cpu"][-1])
+    fused = fused_over_pool(cpu, questions, card_pool)
+    order = np.argsort(-fused, axis=1, kind="stable")[:, :PARITY_K]
+    quality, jax_quality = {}, json.loads(JAX_E2E_PARITY.read_text())["retrieval"]
+    for arm in ("hybrid", "bm25_only", "dense_only"):
+        card_p = id_positions(cpu, arms["card"][arm], PARITY_K)
+        cpu_p = id_positions(cpu, arms["cpu"][arm], PARITY_K)
+        raw = float(np.mean(card_p == cpu_p))
+        if arm == "hybrid":
+            by_pos = [dict(zip(row.tolist(), f.tolist())) for row, f in zip(card_pool, fused)]
+            card_v = np.asarray([[by_pos[i].get(int(x), -np.inf) for x in row]
+                                 for i, row in enumerate(card_p)])
+            ref_p = np.take_along_axis(card_pool, order, axis=1)
+            ref_v = np.take_along_axis(fused, order, axis=1)
+            agree = tie_aware_agreement(card_v, card_p, ref_v, ref_p)
+        else:
+            kind = arm.split("_")[0]
+            agree = tie_aware_agreement(exact_scores(cpu, questions, kind, card_p), card_p,
+                                        exact_scores(cpu, questions, kind, cpu_p), cpu_p)
+        with tempfile.TemporaryDirectory() as tmp:
+            m = RAGEvaluator(output_dir=tmp).evaluate_retrieval(arms["card"][arm], gold,
+                                                                k_values=[1, 10])
+        quality[arm] = {"recall@1": m.recall_at_k[1], "recall@10": m.recall_at_k[10],
+                        "mrr": m.mrr, "raw_vs_cpu": raw,
+                        "tie_aware": agree["tie_aware_agreement"]}
+        ref = jax_quality[arm]["ours_sha256"]
+        held_to = "the CPU's fusion of the card's pool" if arm == "hybrid" else "the CPU's"
+        log(f"    {arm}: card vs CPU lists raw {raw:.6f}; tie-aware against {held_to} "
+            f"{agree['tie_aware_agreement']:.6f}; recall@1 {m.recall_at_k[1]:.4f} recall@10 "
+            f"{m.recall_at_k[10]:.4f} MRR {m.mrr:.4f} (JAX artifact ours_sha256: "
+            f"{ref['recall@1']:.4f} / {ref['recall@10']:.4f} / {ref['mrr']:.4f})")
+        if agree["tie_aware_agreement"] != 1.0:
+            raise AssertionError(f"{arm}: card answers differ outside ties: "
+                                 f"{json.dumps(agree['violations'][:2])[:2000]}")
+    quality["hybrid"]["pool_members_tied_at_a_cut"] = tied
+    log(f"    union pools (card vs CPU): {tied} members differ, every one tied at a cut")
+
+    pool = [q for q in train_qa if q["answers"][0]]
+    cal, test = pool[:PARITY_CAL], pool[PARITY_CAL : PARITY_CAL + PARITY_TEST]
+    with tempfile.TemporaryDirectory() as tmp:
+        conformal = ConformalRAG(parity_e2e_cli.GeneratorStyleEcho(),
+                                 calibration_db_path=f"{tmp}/cal.db", alpha=PARITY_ALPHA,
+                                 device=device)
+        _, cal_s = timed(lambda: conformal.calibrate(
+            [s["question"] for s in cal], [s["context"] for s in cal],
+            [s["answers"][0] for s in cal]))
+        threshold = conformal.get_conformal_threshold()
+        cov = parity_e2e_cli._coverage(conformal, conformal.rouge_l, threshold, test)
+    scores = np.asarray(conformal.calibration_scores, dtype=np.float32)
+    n = len(scores)
+    level = min(1.0, math.ceil((n + 1) * (1 - PARITY_ALPHA)) / n)
+    numpy_threshold = float(np.quantile(scores.astype(np.float64), level))
+    distinct = len(np.unique(scores))
+    jax_conf = json.loads(JAX_E2E_PARITY.read_text())["conformal"]["ours"]
+    log(f"  conformal arm: {n} calibration triples in {cal_s:.2f} s, {distinct} distinct "
+        f"scores, threshold {threshold:.6f} (numpy {numpy_threshold:.6f}), coverage "
+        f"{cov['coverage']:.4f} over {cov['n_test']} (target {1 - PARITY_ALPHA}); the JAX "
+        f"artifact: threshold {jax_conf['threshold']:.6f}, coverage {jax_conf['coverage']}")
+    if not (0.0 < threshold < 1.0) or distinct < MIN_DISTINCT_SCORES \
+            or abs(threshold - numpy_threshold) > 1e-6 \
+            or cov["coverage"] < 1 - PARITY_ALPHA - COVERAGE_SLACK:
+        raise AssertionError(f"conformal arm: threshold {threshold} (numpy {numpy_threshold}), "
+                             f"{distinct} distinct scores, coverage {cov}")
+    return {"launches": launches, "router": ours, "router_s": router_s, "retrieval": quality,
+            "timings": {d: {k: v for k, v in arms[d].items() if k.endswith("_s")}
+                        for d in arms},
+            "conformal": {"threshold": threshold, "distinct_scores": distinct,
+                          "coverage": cov["coverage"], "n_cal": n, "n_test": cov["n_test"],
+                          "calibrate_s": cal_s},
+            "kernel_shapes": shapes}
+
+
 def flat_items(tree: dict, prefix: str = ""):
     """(dotted key, value) for every leaf of nested dicts, in order."""
     for key, value in tree.items():
@@ -2169,6 +2486,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("profile"):
         profile = phase_profile()
+    torch.cuda.empty_cache()
+    with phase("serving_bench"):
+        serving = phase_serving_bench(args.seed)
+    with phase("parity"):
+        parity = phase_parity()
     faulthandler.cancel_dump_traceback_later()
     row["launches"] = ctx["launches"]
     row["launches_by_path"] = {"scatter": ctx["launches"], "twotier": twotier_launches,
@@ -2181,8 +2503,14 @@ def main() -> int:
                                "train_router_data": train["router"]["kernel_launches"],
                                "train_encoder_recall": train["encoder"]["kernel_launches"],
                                "eval": evaluation["launches"],
-                               "pipeline": pipeline["launches"]}
+                               "pipeline": pipeline["launches"],
+                               "serving_bench": serving["launches"],
+                               "parity": parity["launches"]}
     row["eval_shapes"] = evaluation.pop("kernel_shapes")
+    row["served_shapes"] = serving.pop("kernel_shapes")
+    row["parity_shapes"] = parity.pop("kernel_shapes")
+    row["serving_bench_phase"] = serving
+    row["parity_phase"] = parity
     row["sharded_shapes"] = sharded.pop("kernel_cases")
     row["sharded_phase"] = sharded
     row["eval_phase"] = evaluation

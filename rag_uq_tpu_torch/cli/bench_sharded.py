@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import subprocess
 import time
 from pathlib import Path
 from typing import Optional, Sequence
@@ -116,22 +115,6 @@ def tie_aware_agreement(
     }
 
 
-def _card(device) -> dict:
-    """The card's name and power limit as nvidia-smi reports them."""
-    import torch
-
-    if device.type != "cuda":
-        return {"device_name": "cpu", "power_limit": None}
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", f"--id={torch.cuda.current_device()}",
-             "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60).stdout.strip()
-    except (OSError, subprocess.TimeoutExpired):
-        smi = ""
-    return {"device_name": torch.cuda.get_device_name(device), "power_limit": smi or None}
-
-
 def run_bench(
     n_docs: int = 1_000_000,
     n_devices: Optional[int] = None,
@@ -148,6 +131,7 @@ def run_bench(
     import torch.distributed as dist
 
     from rag_uq_tpu_torch.core.config import BM25Config, DenseIndexConfig
+    from rag_uq_tpu_torch.core.device import card_info
     from rag_uq_tpu_torch.core.mesh import initialize_distributed, make_mesh, mesh_device, mesh_rank
     from rag_uq_tpu_torch.core.types import Document
     from rag_uq_tpu_torch.embed.hash_embed import NgramHashEmbedder
@@ -168,7 +152,7 @@ def run_bench(
         "n_devices": mesh.size(),
         "backend": dev.type,
         "collective": dist.get_backend(mesh.get_group()),
-        **_card(dev),
+        **card_info(dev),
         "batch": batch,
         "pool": pool,
         "k": k,

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import subprocess
 from typing import Union
 
 import torch
@@ -19,3 +20,20 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def card_info(device: DeviceLike) -> dict:
+    """The card's name and power limit as ``nvidia-smi`` reports them
+    (``power_limit`` None where it cannot be read; "cpu" and None on the CPU)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"device_name": "cpu", "power_limit": None}
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        smi = ""
+    return {"device_name": torch.cuda.get_device_name(dev), "power_limit": smi or None}

@@ -183,23 +183,31 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// The driver's cuTensorMapEncodeTiled, looked up once: a function-local
+// static is initialised exactly once even when several host threads launch
+// at the same time (the serving dispatchers do).
 cudaError_t encoder(EncodeTiled* out) {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
+  struct Lookup {
+    EncodeTiled fn = nullptr;
+    cudaError_t err = cudaSuccess;
+  };
+  static const Lookup found = [] {
+    Lookup l;
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
+    l.err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                             cudaEnableDefault, &q);
 #else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+    l.err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
 #endif
-    if (err != cudaSuccess) return err;
-    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  *out = fn;
-  return cudaSuccess;
+    if (l.err == cudaSuccess && (q != cudaDriverEntryPointSuccess || p == nullptr))
+      l.err = cudaErrorNotSupported;
+    if (l.err == cudaSuccess) l.fn = reinterpret_cast<EncodeTiled>(p);
+    return l;
+  }();
+  *out = found.fn;
+  return found.err;
 }
 
 // A [rows, D] row-major matrix seen in boxes of box_rows x 128 bytes, with

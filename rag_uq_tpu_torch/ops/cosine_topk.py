@@ -223,7 +223,7 @@ def cuda_cosine_topk(
     stream = torch.cuda.current_stream(emb.device).cuda_stream
     if k > MAX_K:
         _large_topk(emb, q, live, k, vals, idx, stream)
-        cuda_cosine_topk.large_launches += 1
+        record_launch(large=True)
     else:
         cfg = kernel_config(emb.dtype, k)
         n_sm = torch.cuda.get_device_properties(emb.device).multi_processor_count
@@ -240,7 +240,7 @@ def cuda_cosine_topk(
             )
         if rc != 0:
             raise RuntimeError(f"cosine top-k kernel launch failed: CUDA error {rc}")
-    cuda_cosine_topk.launches += 1
+        record_launch()
     return vals, idx
 
 
@@ -280,6 +280,18 @@ def _large_topk(
 
 cuda_cosine_topk.launches = 0  # every launch, either path
 cuda_cosine_topk.large_launches = 0  # launches of the large-k path
+_count_lock = threading.Lock()
+
+
+def record_launch(large: bool = False) -> None:
+    """Add one launch to ``cuda_cosine_topk.launches`` (and, for the
+    large-k path, ``.large_launches``) under a lock: the serving
+    dispatchers launch from several threads at once, and an unlocked
+    ``+= 1`` can lose a count. Setting a count (to 0) needs no lock."""
+    with _count_lock:
+        cuda_cosine_topk.launches += 1
+        if large:
+            cuda_cosine_topk.large_launches += 1
 
 
 def merge_pass(

@@ -64,5 +64,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "rag_uq_tpu_torch.cli.profile_fused", "rag_uq_tpu_torch.models",
                  "rag_uq_tpu_torch.text.porter", "rag_uq_tpu_torch.examples.quickstart",
                  "rag_uq_tpu_torch.core.mesh", "rag_uq_tpu_torch.parallel.sharding",
-                 "rag_uq_tpu_torch.parallel.sharded_index", "rag_uq_tpu_torch.cli.bench_sharded"):
+                 "rag_uq_tpu_torch.parallel.sharded_index", "rag_uq_tpu_torch.cli.bench_sharded",
+                 "rag_uq_tpu_torch.compat", "rag_uq_tpu_torch.compat.shims",
+                 "rag_uq_tpu_torch.cli.bench_serving", "rag_uq_tpu_torch.cli.parity",
+                 "rag_uq_tpu_torch.cli.parity_e2e"):
         assert name in out["modules"]
