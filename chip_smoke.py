@@ -22,7 +22,18 @@ Phases, each printing one line "phase <name> ok <seconds>":
            serves) at the main batch and index;
            timed with CUDA events beside its bound, the plain twin,
            torch.matmul + torch.topk (library_ms) and torch.matmul alone
-           (library_matmul_ms), with the merge pass timed apart;
+           (library_matmul_ms), with the merge pass timed apart; then the
+           small-batch regime on seeded rows at every shape the port's paths
+           launch (REGIME_SHAPES: the served batches B = 1, 8, 64, 256 over
+           20,000 rows, the evaluation chunks, the gloo rank's and the last
+           shard, the training and parity shapes, and the main shape), each
+           with its plan printed, held to the plain twin, timed beside its
+           bound and torch.matmul + torch.topk, and its merge pass timed alone
+           on the chunks' lists (the plain twin over each chunk) and held bit
+           for bit to merge_plain; and at B = 1 and 256 over the served 20,000
+           rows: ties planted across every chunk boundary of the plan (lowest
+           row first), fewer live rows than k, an empty index and every score
+           negative;
   large_k  the k > MAX_K path against the plain twin: k = 257, 1000 and 8192
            at the main shape (the score pass and the select also timed
            apart, and the select held bit for bit to a stable sort of the
@@ -310,6 +321,20 @@ MIN_PIPELINE_MRR, MIN_PIPELINE_EM = 0.60, 0.45
 # and the heap kernel alone at the batches the micro-batcher forms.
 SERVING_DOCS, SERVING_SECONDS, SERVING_LEVELS = 20_000, 3.0, (1, 8, 32, 128)
 SERVING_SAMPLE, SERVED_BATCHES = 512, (1, 8, 64, 256)
+# The heap kernel's small-batch regime, on seeded rows at the shapes the
+# paths launch, k = POOL: (what, B, live rows, index rows, D).
+REGIME_SHAPES = (
+    ("served B=1", 1, SERVING_DOCS, 32_768, DIM), ("served B=8", 8, SERVING_DOCS, 32_768, DIM),
+    ("served B=64", 64, SERVING_DOCS, 32_768, DIM),
+    ("served B=256", 256, SERVING_DOCS, 32_768, DIM),
+    ("eval chunk B=72", 72, 5_000, 8_192, ENCODER_DIM),
+    ("eval chunk B=128", 128, 5_000, 8_192, ENCODER_DIM),
+    ("gloo rank B=512", 512, 10_240, 16_384, DIM),
+    ("training B=512", 512, 5_000, 8_192, ENCODER_DIM),
+    ("parity B=800", 800, 4_000, 4_096, 384),
+    ("last shard B=2048", BATCH, 1_696, 32_768, DIM),
+    ("main B=2048", BATCH, N_DOCS, CAP, DIM),
+)
 # The parity phase: cli/parity.py at its defaults (500 queries, 20 epochs)
 # and cli/parity_e2e.py's port arms at its defaults (4,000 articles, 800
 # held-out questions, k = 10, 1,000 calibration and 2,000 test triples,
@@ -492,7 +517,7 @@ def phase_kernel(gen: torch.Generator) -> dict:
     for bsz in (BATCH, 1):
         err = max(err, case(f"B={bsz} cap={CAP} D={DIM} k={POOL}", emb, q[:bsz], N_DOCS, POOL)[0])
     for k in (128, ck.MAX_K):  # the two query tiles of kernel_config, and the pool limit
-        cfg = ck.kernel_config(emb.dtype, k)
+        cfg = ck.kernel_config(emb.dtype, k, BATCH)
         err = max(err, case(f"k={k} (query tile {cfg.query_tile}, {cfg.stages} stages)",
                             emb, q, N_DOCS, k)[0])
     err = max(err, case("B=2047 (ragged query tile)", emb, q[:2047], N_DOCS, POOL)[0])
@@ -504,21 +529,9 @@ def phase_kernel(gen: torch.Generator) -> dict:
     err = max(err, case("all scores negative, size=100000", pos_e, neg_q, N_DOCS, POOL)[0])
     # Ties across chunk boundaries: query i finds four identical rows, two
     # on each side of the i-th boundary; the lowest rows must come first.
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    cfg = ck.kernel_config(emb.dtype, POOL)
-    n_chunks, chunk_rows = ck.chunking(BATCH, N_DOCS, cfg.query_tile, n_sm)
-    tie_e = emb.clone()
-    planted = []
-    for i in range(n_chunks - 1):
-        b = (i + 1) * chunk_rows
-        tie_e[b - 2 : b + 2] = q[i].bfloat16()
-        planted.append((i, list(range(b - 2, b + 2))))
-    e_ties, ki = case(f"ties across {n_chunks - 1} chunk boundaries", tie_e, q, N_DOCS, POOL)
-    err = max(err, e_ties)
-    for i, rows in planted:
-        if ki[i, :4].tolist() != rows:
-            raise AssertionError(f"query {i}: tied rows {ki[i, :4].tolist()} != {rows}")
-    log(f"  planted ties: rows {planted[0][1]} first for query 0, and so on")
+    plan = ck.plan(emb.dtype, POOL, BATCH, N_DOCS, ck.sm_count(torch.cuda.current_device()))
+    n_chunks, chunk_rows, cfg = plan.n_chunks, plan.chunk_rows, plan.config
+    err = max(err, planted_ties(case, emb, q, N_DOCS, plan))
     # fp16 and f32 corpora (f32: f32 FMA products, held to F32_ATOL).
     err = max(err, case("fp16 corpus", emb.half(), q, N_DOCS, POOL)[0])
     f32_err = case("f32 corpus", emb.float(), q, N_DOCS, POOL, F32_ATOL)[0]
@@ -538,15 +551,12 @@ def phase_kernel(gen: torch.Generator) -> dict:
 
     library_ms = cuda_ms(library, reps=20)
     library_matmul_ms = cuda_ms(library_matmul, reps=20)
-    # The merge pass alone, on the chunks' own sorted lists (each from the
-    # plain twin over its chunk's rows); its result must equal the kernel's.
-    part_v = torch.empty((BATCH, n_chunks, POOL), dtype=torch.float32, device=dev)
-    part_i = torch.empty((BATCH, n_chunks, POOL), dtype=torch.int32, device=dev)
-    for c in range(n_chunks):
-        lo, hi = c * chunk_rows, min((c + 1) * chunk_rows, N_DOCS)
-        v, i = ck.cosine_topk_plain(emb[lo:hi], q, hi - lo, POOL)
-        part_v[:, c], part_i[:, c] = v, torch.where(i >= 0, i + lo, i)
+    # The merge pass alone, on the chunks' own lists (each from the plain
+    # twin over its chunk's rows): bit for bit merge_plain's, and the kernel's
+    # result under the tie rule.
+    part_v, part_i = ck.chunk_lists_plain(emb, q, N_DOCS, POOL, chunk_rows)
     mv, mi = ck.merge_pass(part_v, part_i, POOL)
+    same_merge(mv, mi, part_v, part_i, POOL, "merge pass alone, main shape")
     kv, ki = ck.cuda_cosine_topk(emb, q, N_DOCS, POOL)
     check_topk(mv, mi, kv, ki, "merge pass alone vs the kernel")
     merge_ms = cuda_ms(lambda: ck.merge_pass(part_v, part_i, POOL), reps=20)
@@ -562,6 +572,8 @@ def phase_kernel(gen: torch.Generator) -> dict:
         f"({bound_ms / ms:.1%} of it), kernel - matmul {ms - library_matmul_ms:.4f} ms")
     if ms > 100.0:
         raise AssertionError(f"one launch takes {ms:.1f} ms, over the 100 ms ceiling")
+    regime = small_batch_regime(gen, case, unit)
+    err = max(err, max(r["max_abs_err"] for r in regime))
     return {
         "name": "cosine_topk", "route": "cuda",
         "source": "rag_uq_tpu_torch/csrc/cosine_topk.cu",
@@ -569,8 +581,92 @@ def phase_kernel(gen: torch.Generator) -> dict:
         "max_abs_err": err, "f32_max_abs_err": f32_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms, "library_matmul_ms": library_matmul_ms,
-        "merge_ms": merge_ms, "d256": d256,
+        "merge_ms": merge_ms, "d256": d256, "regime": regime,
     }
+
+
+def same_merge(mv, mi, part_v, part_i, k: int, what: str) -> None:
+    """The merge pass's result equals merge_plain's on the same lists, the
+    values bit for bit."""
+    pv, pi = ck.merge_plain(part_v, part_i, k)
+    if not (torch.equal(mi, pi) and torch.equal(mv.view(torch.int32), pv.view(torch.int32))):
+        bad = int((mi != pi).any(dim=1).sum())
+        raise AssertionError(f"{what}: the merge pass differs from merge_plain in {bad} rows")
+
+
+def planted_ties(case, emb, q, size: int, plan) -> float:
+    """Rows equal to a query planted two on each side of every chunk
+    boundary of the plan (query i at boundary i, cycling through the
+    batch): the kernel against its twin, and the tied rows lowest first.
+    Returns the max |diff|."""
+    tie_e = emb.clone()
+    planted = []
+    for c in range(1, plan.n_chunks):
+        b, i = c * plan.chunk_rows, (c - 1) % q.shape[0]
+        tie_e[b - 2 : b + 2] = q[i].to(emb.dtype)
+        planted.append((i, list(range(b - 2, b + 2))))
+    err, ki = case(f"ties across {plan.n_chunks - 1} chunk boundaries, B={q.shape[0]}",
+                   tie_e, q, size, POOL)
+    for i in {i for i, _ in planted}:  # the first k of a query's tied rows, lowest first
+        rows = sorted(r for j, tied in planted if j == i for r in tied)[:POOL]
+        if ki[i, : len(rows)].tolist() != rows:
+            raise AssertionError(f"query {i}: tied rows {ki[i, :len(rows)].tolist()} != {rows}")
+    log(f"  planted ties: rows {planted[0][1]} first for query {planted[0][0]}, and so on")
+    return err
+
+
+def small_batch_regime(gen: torch.Generator, case, unit) -> list:
+    """The heap kernel at every shape of REGIME_SHAPES (seeded unit rows,
+    bf16, k = POOL): its plan printed, held to the plain twin, timed with
+    CUDA events beside its bound and torch.matmul + torch.topk, and its
+    merge pass timed alone on the chunks' lists and held bit for bit to
+    merge_plain; then the edge cases at B = 1 and 256 over the served
+    20,000 rows. Returns a row a shape."""
+    dev = torch.device("cuda")
+    n_sm = ck.sm_count(torch.cuda.current_device())
+    rows = []
+    for what, bsz, live, cap, dim in REGIME_SHAPES:
+        emb = unit(torch.randn((cap, dim), generator=gen, device=dev)).bfloat16()
+        q = unit(torch.randn((bsz, dim), generator=gen, device=dev)).bfloat16()
+        plan = ck.plan(emb.dtype, POOL, bsz, live, n_sm)
+        log(f"  {what} over {live} live D={dim} rows: plan query tile "
+            f"{plan.config.query_tile}, {plan.config.stages} stages, {plan.n_chunks} chunks "
+            f"of {plan.chunk_rows} rows ({-(-bsz // plan.config.query_tile) * plan.n_chunks} "
+            f"blocks, {plan.n_chunks * POOL} candidates a query)")
+        kv, ki = ck.cuda_cosine_topk(emb, q, live, POOL)
+        pv, pi = ck.cosine_topk_plain(emb, q, live, POOL)
+        err = check_topk(kv, ki, pv, pi, what, KERNEL_ATOL,
+                         lambda ids, q=q, e=emb[:live]: torch.matmul(q[ids].float(), e.float().T))
+        part_v, part_i = ck.chunk_lists_plain(emb, q, live, POOL, plan.chunk_rows)
+        mv, mi = ck.merge_pass(part_v, part_i, POOL)
+        same_merge(mv, mi, part_v, part_i, POOL, what)
+        ms = cuda_ms(lambda: ck.cuda_cosine_topk(emb, q, live, POOL), reps=20)
+        merge_ms = cuda_ms(lambda: ck.merge_pass(part_v, part_i, POOL), reps=20)
+        live_e = emb[:live]
+        library_ms = cuda_ms(lambda: torch.topk(torch.matmul(q, live_e.T), POOL), reps=20)
+        t_ops = 2.0 * bsz * live * dim / PEAK_BF16_FLOPS * 1e3
+        t_bytes = (live * dim * 2 + bsz * dim * 2 + bsz * POOL * 8) / PEAK_BYTES_S * 1e3
+        row = {"shape": what, "B": bsz, "live": live, "rows": cap, "dim": dim, "k": POOL,
+               "query_tile": plan.config.query_tile, "stages": plan.config.stages,
+               "n_chunks": plan.n_chunks, "chunk_rows": plan.chunk_rows, "max_abs_err": err,
+               "ms": ms, "merge_ms": merge_ms, "library_ms": library_ms,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        log(f"    timed: kernel {ms:.4f} ms (merge pass alone {merge_ms:.4f} ms), library "
+            f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"merge pass = merge_plain bit for bit")
+        rows.append(row)
+    emb = unit(torch.randn((32_768, DIM), generator=gen, device=dev)).bfloat16()
+    pos_e = unit(torch.randn((32_768, DIM), generator=gen, device=dev).abs()).bfloat16()
+    for bsz in (1, 256):
+        q = unit(torch.randn((bsz, DIM), generator=gen, device=dev)).bfloat16()
+        planted_ties(case, emb, q, SERVING_DOCS, ck.plan(emb.dtype, POOL, bsz, SERVING_DOCS, n_sm))
+        case(f"B={bsz}, 30 live rows (size < k)", emb, q, 30, POOL)
+        case(f"B={bsz}, empty index", emb, q, 0, POOL)
+        neg_q = -unit(torch.randn((bsz, DIM), generator=gen, device=dev).abs())
+        case(f"B={bsz}, every score negative, {SERVING_DOCS} live", pos_e, neg_q,
+             SERVING_DOCS, POOL)
+    return rows
 
 
 def encoder_width_case(case, corpus) -> dict:

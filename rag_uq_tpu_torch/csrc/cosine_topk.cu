@@ -40,40 +40,77 @@
 //      value) in registers, so the warp's 16 queries take their survivors
 //      in parallel: the quad that holds a query's scores queues them, the
 //      owner offers them to its heap, and a sift-down is two levels at
-//      k = 50. The first tile of a chunk, where every score survives, is
-//      taken in bulk: the quad stores the query's first k scores straight
-//      into the heap's slots and the owner makes them a heap bottom-up. At
-//      the chunk's end each owner heap-sorts its list into rank order.
-//      Measured on the card, the upkeep is bound by dependent shared-memory
-//      round trips, which wait behind the products' and the ring's traffic;
-//      a binary heap (about six levels) and sorted lists shifted by the
-//      warp were slower (PERF.md).
+//      k = 50. Measured on the card, the upkeep is bound by dependent
+//      shared-memory round trips, which wait behind the products' and the
+//      ring's traffic; a binary heap (about six levels) and sorted lists
+//      shifted by the warp were slower (PERF.md).
 // An f32 corpus takes a plain f32 FMA product core (CUDA cores, no TF32)
 // reading the same swizzled tiles, with the same thread-to-score layout as
 // the wgmma fragment, so the ring, the upkeep and the merge are shared.
+//
+// The small-batch regime: the served micro-batches (B = 1-256 over 20,000
+// live D = 768 rows), the evaluation chunks (B = 72, 128 over 5,000 D = 256
+// rows), the training, parity and shard shapes (B = 512-2048 over 1,696-
+// 10,240 rows). There the work is bound by bytes: at B <= 256 over 20,000
+// rows the live corpus is 30.7 MB, 0.0092 ms at 3.35 TB/s, while the
+// products are at most 0.008 ms at 989 TFLOP/s. What held the earlier plan
+// back there (1.17-1.30 ms a launch at B = 1-256 over 20,000 rows on an
+// H100 80GB HBM3 at 700 W, 6-10x torch.matmul + torch.topk):
+//   1. The merge: one warp per query, each candidate placed by a binary
+//      search in every other chunk's sorted list from device memory, 53 x
+//      50 candidates a query; at B = 1 one warp on the whole card.
+//   2. The plan: a query tile of 128 whatever the batch, and up to 64
+//      chunks for one or two query tiles; query rows past B still kept
+//      lists, and all-zero rows tie at every score.
+//   3. Per launch: the chunk pass sorted every list for the merge's binary
+//      searches; the first tile sifted its 128 - k scores past the bulk one
+//      by one; the host set the kernel's shared-memory limit every launch.
+// What this design does about each:
+//   1. merge_kernel takes a query a block and does not need sorted lists:
+//      the candidates become order-preserving 64-bit keys in shared memory
+//      (16-byte loads), a radix select by bytes finds the k-th key, and the
+//      k keys at or above it are ranked by counting. It only selects, so it
+//      equals the rank-rule merge of the same lists bit for bit.
+//   2. The plan (ops/cosine_topk.py::plan) takes the batch: a query tile of
+//      64 (one consumer warpgroup) where B <= 64; about one block per SM;
+//      chunks of at least 2k rows, so a query's candidates are at most half
+//      the live rows, and at most MAX_CANDIDATES of them. A warp whose
+//      query rows all lie past B skips the upkeep and the write; a dead row
+//      of a live warp has a root of +inf and marks nothing.
+//   3. The lists are written in heap order (no sort). The first tile finds,
+//      for each row, a cut with exactly k of its scores at or above it by a
+//      bitwise search over order-preserving keys, counted across the quad
+//      and stopped once every row of the warp has one; those k are stored
+//      and made a heap, and no score is marked. A row whose ties straddle
+//      its k-th score is taken in bulk as before (its first k scores stored,
+//      the rest marked and offered in rounds). The limit is set once per
+//      device and template instance.
+// The later tiles' upkeep (the filter, the queues, the 8-ary heap) is the
+// main shape's design above: at B = 2048 it is what wins, and at small B it
+// is now the largest phase (cli/profile_cosine_topk.py).
 //
 // Work split. The TPU kernel walks the corpus in order on one core and
 // carries a running top-k from block to block. Here blocks run in parallel:
 //   1. chunk_topk_kernel, grid (query tiles, corpus chunks), query tile
 //      fastest so the tiles that read one chunk share it through L2; about
-//      one block per SM. Each block writes its k best per query to a
-//      [B, n_chunks, k] scratch.
-//   2. merge_kernel, one warp per query: every finite candidate's final
-//      position is its position in its chunk's sorted list plus the number
-//      of entries of the other chunks that rank before it (binary search);
-//      positions below k are written, the rest of the row is dead.
+//      one block per SM. Each block writes its k best per query, in heap
+//      order, to a [B, n_chunks, k] scratch.
+//   2. merge_kernel, one block of 256 threads per query, as above; the
+//      positions below min(k, finite candidates) are written, the rest of
+//      the row is dead.
 //
-// Shared memory of a block (bytes), with BQ queries a block, BN = 128 rows
-// a corpus tile, S stages and 128-byte-wide boxes:
+// Shared memory of a chunk block (bytes), with BQ queries a block, BN = 128
+// rows a corpus tile, S stages and 128-byte-wide boxes:
 //   1024 (alignment of the swizzled tiles)
 //   + S * (BQ + BN) * 128                  stages (query box, corpus box)
 //   + BQ * (k | 1) * 8                     running lists (f32 value, i32 row)
 //   + (BQ / 16) * 128 * 8                  a scratch of 128 candidates a warp
 //   + S * 16                               full and empty mbarriers
 // It must fit in 232448. ops/cosine_topk.py::kernel_config computes the
-// same formula: BQ = 128 where three stages fit beside the lists (k <= 121),
-// else BQ = 64 (k <= 256 fits with three stages); S = as many as fit, at
-// most 6.
+// same formula: BQ = 64 where B <= 64; else BQ = 128 where three stages fit
+// beside the lists (k <= 121), else BQ = 64 (k <= 256 fits with three
+// stages); S = as many as fit, at most 6. A merge block takes n_chunks * k *
+// 8 bytes of keys (at most MAX_CANDIDATES * 8 = 131072) and 3088 static.
 //
 // Interface: plain C, launched on the caller's stream, returns
 // cudaGetLastError() (or the error of the tensor-map encoding). The tensor
@@ -82,6 +119,7 @@
 // libcuda; it is looked up at run time through the CUDA runtime's
 // entry-point query, so nothing links libcuda.
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 
@@ -95,6 +133,8 @@ constexpr int MAX_K = 256;
 constexpr int SCRATCH = 128;  // candidates in a warp's scratch
 constexpr int QUEUE = SCRATCH / 16;  // of which each of its 16 queries' queue
 constexpr size_t SMEM_LIMIT = 232448;
+constexpr int MAX_CANDIDATES = 16384;  // n_chunks * k a query the merge stages
+constexpr int MERGE_THREADS = 256;
 
 __host__ __device__ constexpr size_t smem_bytes(int bq, int k, int stages) {
   return 1024 + static_cast<size_t>(stages) * (bq + BN) * BOX_BYTES +
@@ -103,6 +143,17 @@ __host__ __device__ constexpr size_t smem_bytes(int bq, int k, int stages) {
 }
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// Order-preserving map of an f32 to a u32 (larger value, larger key; -0
+// below +0), and its inverse.
+__device__ __forceinline__ uint32_t ordered(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float from_ordered(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
 
 // Profiling builds (-DCOSINE_TOPK_PROFILE, cli/profile_cosine_topk.py) sum
 // the clock64 cycles each consumer warp spends in four phases: the products
@@ -171,32 +222,6 @@ __device__ __forceinline__ Entry heap_sift(Entry* h, int n, int i, float x, int 
 // Make k entries in any order a heap (bottom-up, linear time).
 __device__ __forceinline__ void heap_build(Entry* h, int k) {
   for (int i = (k - 2) / ARY; i >= 0; --i) heap_sift(h, k, i, h[i].v, h[i].i);
-}
-
-// Sort the heap in place into rank order (best first): the root, which
-// ranks last, goes to the end of the shrinking heap.
-__device__ __forceinline__ void heap_sort(Entry* h, int k) {
-  for (int end = k - 1; end > 0; --end) {
-    const Entry x = h[end];
-    h[end] = h[0];
-    heap_sift(h, end, 0, x.v, x.i);
-  }
-}
-
-// Count of the first n entries of the sorted list (v, ix) that rank before
-// (x, r) (a prefix of the list).
-__device__ __forceinline__ int count_before(const float* v, const int* ix, int n, float x,
-                                            int r) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (before(v[mid], ix[mid], x, r)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
 }
 
 // ---- the products ---------------------------------------------------------
@@ -321,7 +346,10 @@ chunk_topk_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int sub = lane & 3;
   // Lane 4ra + h (sub < 2) owns the heap of row ra + 8h and keeps its root.
   Entry* own = wL + (ra + 8 * (sub & 1)) * ks;
-  Entry root{neg_inf(), INT_MAX};
+  // Query rows at or past B (a batch smaller than the tile) keep no list. A
+  // warp with none live skips the upkeep and the write; a dead row of a live
+  // warp builds no heap, and its root of +inf marks none of its scores.
+  Entry root{q0 + qw + ra + 8 * (sub & 1) < B ? neg_inf() : pos_inf(), INT_MAX};
   float thr[2] = {neg_inf(), neg_inf()};
 
   float d[64];
@@ -360,6 +388,7 @@ chunk_topk_kernel(const __grid_constant__ CUtensorMap tm_q,
     __syncwarp();
     if (lane == 0) mbar_arrive(smem_u32(&bars[stages + prev]));
     PROFILE_ADD(0, t_products);
+    if (q0 + qw >= B) continue;
     PROFILE_NOW(t_upkeep);
 
     // ---- upkeep: the warp's 16 queries against this tile's 128 rows ----
@@ -368,27 +397,84 @@ chunk_topk_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int row0 = r_begin + tile * BN + sub * 2;
     unsigned pend[2] = {0u, 0u};
     if (tile == 0) {
-      // Every score is a candidate: taken in bulk. The quad's lanes store a
-      // row's first k scores (column order) in its heap's slots, the owner
-      // makes them a heap bottom-up, and the rest are marked.
+      // Every score is a candidate. A bitwise search over order-preserving
+      // keys, counted across the quad, finds for each row a cut with
+      // exactly k of its scores at or above it (rows past B need none);
+      // those k are the row's heap, and no score is marked. A row whose
+      // ties straddle its k-th score gets no such cut: it is taken in bulk,
+      // the quad's lanes storing its first k scores (column order) in the
+      // heap's slots and marking the rest. Then the owner makes its slots a
+      // heap bottom-up.
+      const int n_valid = min(BN, r_end - r_begin);
+      if (n_valid < BN) {  // a short chunk: its missing rows never reach a cut
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+            if (row0 + 8 * j + b >= r_end) d[4 * j + b] = d[4 * j + 2 + b] = neg_inf();
+      }
+      bool cut[2] = {q0 + qw + ra >= B, q0 + qw + ra + 8 >= B};  // a cut found (or not needed)
+      uint32_t key[2] = {0u, 0u};
+      if (n_valid > k) {
+        for (int bit = 31; bit >= 0 && !__all_sync(0xffffffffu, cut[0] && cut[1]); --bit) {
+          float t[2];
+          int n[2] = {0, 0};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) t[h] = from_ordered(key[h] | (1u << bit));
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int j = i >> 1, b = i & 1;
+            n[0] += d[4 * j + b] >= t[0];
+            n[1] += d[4 * j + 2 + b] >= t[1];
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            n[h] += __shfl_xor_sync(0xffffffffu, n[h], 1);
+            n[h] += __shfl_xor_sync(0xffffffffu, n[h], 2);
+            if (!cut[h] && n[h] >= k) {
+              key[h] |= 1u << bit;
+              cut[h] = n[h] == k;
+            }
+          }
+        }
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         Entry* hl = wL + (ra + 8 * h) * ks;
+        const bool live = q0 + qw + ra + 8 * h < B;
+        const bool by_cut = n_valid > k && cut[h];
+        const float t = from_ordered(key[h]);
+        unsigned take = 0u;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const bool in = by_cut && live && d[4 * (i >> 1) + 2 * h + (i & 1)] >= t;
+          take |= static_cast<unsigned>(in) << i;
+        }
+        const int c = __popc(take);
+        const int c1 = __shfl_up_sync(0xffffffffu, c, 1, 4);
+        const int c2 = __shfl_up_sync(0xffffffffu, c, 2, 4);
+        const int c3 = __shfl_up_sync(0xffffffffu, c, 3, 4);
+        int slot = (sub > 0 ? c1 : 0) + (sub > 1 ? c2 : 0) + (sub > 2 ? c3 : 0);
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int b = 0; b < 2; ++b) {
-            const int slot = 32 * sub + 2 * j + b, row = row0 + 8 * j + b;
-            const bool ok = row < r_end;
-            if (slot < k) {
-              hl[slot] = ok ? Entry{d[4 * j + 2 * h + b], row} : Entry{neg_inf(), INT_MAX};
-            } else if (ok) {
-              pend[h] |= 1u << (2 * j + b);
+            const int row = row0 + 8 * j + b;
+            if (by_cut) {
+              if (take & (1u << (2 * j + b))) hl[slot++] = Entry{d[4 * j + 2 * h + b], row};
+            } else if (live) {
+              const int bulk = 32 * sub + 2 * j + b;
+              const bool ok = row < r_end;
+              if (bulk < k) {
+                hl[bulk] = ok ? Entry{d[4 * j + 2 * h + b], row} : Entry{neg_inf(), INT_MAX};
+              } else if (ok) {
+                pend[h] |= 1u << (2 * j + b);
+              }
             }
           }
       }
       __syncwarp();
-      if (sub < 2) {
+      if (sub < 2 && root.v != pos_inf()) {
         heap_build(own, k);
         root = own[0];
       }
@@ -467,10 +553,10 @@ chunk_topk_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
 
-  // Sort each heap into rank order, then write the warp's rows.
+  // Write the warp's live rows: each list in heap order (the merge ranks
+  // the candidates itself).
+  if (q0 + qw >= B) return;
   PROFILE_NOW(t_final);
-  if (sub < 2) heap_sort(own, k);
-  __syncwarp();
   const int qrow0 = q0 + qw;
   for (int i = lane; i < 16 * k; i += 32) {
     const int qq = i / k, j = i - qq * k;
@@ -490,48 +576,189 @@ chunk_topk_kernel(const __grid_constant__ CUtensorMap tm_q,
 #endif
 }
 
-// ---- the merge pass -------------------------------------------------------
+// ---- the merge pass --------------------------------------------------------
 
-// One warp per query over its n_chunks sorted lists of k. Finite candidates
-// are distinct rows, so their merged positions are distinct; the first
-// min(k, finite) slots are written by them, the rest are dead.
-__global__ void merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
-                             int B, int n_chunks, int k, float* __restrict__ out_v,
-                             int* __restrict__ out_i) {
-  const int query = static_cast<int>((static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                                      threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (query >= B) return;
-  const int n_cand = n_chunks * k;
-  const float* cv = part_v + static_cast<size_t>(query) * n_cand;
-  const int* ci = part_i + static_cast<size_t>(query) * n_cand;
-  float* ov = out_v + static_cast<size_t>(query) * k;
-  int* oi = out_i + static_cast<size_t>(query) * k;
+// A candidate as one 64-bit key that ranks it: the larger key ranks first.
+// Bits 63-32 hold the value as an order-preserving u32 (-0 read as +0, as
+// `before` compares them); bits 31-1 hold 0x7fffffff - row, so the lower row
+// of two equal values has the larger key; bit 0 marks a -0, so the value
+// comes back bit for bit. Rows are below 2^31, so finite keys are distinct
+// and nonzero; a dead candidate (-inf) is 0.
+__device__ __forceinline__ uint64_t merge_key(float v, int r) {
+  if (v == neg_inf()) return 0;
+  const uint32_t u = __float_as_uint(v);
+  const bool neg_zero = u == 0x80000000u;
+  const uint32_t o = neg_zero ? 0x80000000u : ordered(v);
+  const uint32_t low = ((0x7fffffffu - static_cast<uint32_t>(r)) << 1) | (neg_zero ? 1u : 0u);
+  return (static_cast<uint64_t>(o) << 32) | low;
+}
 
-  int written = 0;
-  for (int c = lane; c < n_cand; c += 32) {
-    const float v = cv[c];
-    if (v == neg_inf()) continue;
-    const int r = ci[c];
-    const int own = c / k;
-    int pos = c - own * k;
-    for (int other = 0; other < n_chunks && pos < k; ++other)
-      if (other != own) pos += count_before(cv + other * k, ci + other * k, k, v, r);
-    if (pos < k) {
-      ov[pos] = v;
-      oi[pos] = r;
-      ++written;
+__device__ __forceinline__ Entry merge_entry(uint64_t key) {
+  const uint32_t low = static_cast<uint32_t>(key);
+  return Entry{(low & 1u) ? -0.f : from_ordered(static_cast<uint32_t>(key >> 32)),
+               static_cast<int>(0x7fffffffu - (low >> 1))};
+}
+
+// The merge: one block of MERGE_THREADS per query. Its n_chunks * k
+// candidates go to shared memory as keys (16-byte loads), a radix select
+// over the keys' bytes, from the top, finds the smallest key of the k best
+// (each pass counts the keys that share the bytes found so far into 256
+// bins, one shared atomic per distinct bin a warp, and stops once the bin
+// of the k-th key holds exactly the keys still needed), the keys at or
+// above it (min(k, finite) of them) are gathered and each is ranked by
+// counting the gathered keys above it. It only selects: every value and
+// row comes from the lists unchanged. Shared memory: n_chunks * k * 8
+// dynamic bytes, and 256 * 4 + MAX_K * 8 + 16 static.
+__global__ void __launch_bounds__(MERGE_THREADS)
+merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
+                   int n_cand, int k, float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ uint64_t mkeys[];
+  __shared__ int hist[256];
+  __shared__ uint64_t sel[MAX_K];
+  __shared__ int s_bin, s_above, s_in_bin, s_count;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const size_t query = blockIdx.x;
+  const float* cv = part_v + query * n_cand;
+  const int* ci = part_i + query * n_cand;
+
+  // Stage the keys: scalar loads up to the first 16-byte boundary (part_v
+  // and part_i rows share their offset from it), 16-byte loads, the tail.
+  const int misaligned = static_cast<int>(reinterpret_cast<uintptr_t>(cv) & 15u) / 4;
+  const int head = min(n_cand, (4 - misaligned) & 3);
+  const int n4 = (n_cand - head) / 4;
+  for (int i = tid; i < head; i += MERGE_THREADS) mkeys[i] = merge_key(cv[i], ci[i]);
+  const float4* cv4 = reinterpret_cast<const float4*>(cv + head);
+  const int4* ci4 = reinterpret_cast<const int4*>(ci + head);
+  for (int i = tid; i < n4; i += MERGE_THREADS) {
+    const float4 v = cv4[i];
+    const int4 r = ci4[i];
+    uint64_t* dst = mkeys + head + 4 * i;
+    dst[0] = merge_key(v.x, r.x);
+    dst[1] = merge_key(v.y, r.y);
+    dst[2] = merge_key(v.z, r.z);
+    dst[3] = merge_key(v.w, r.w);
+  }
+  for (int i = head + 4 * n4 + tid; i < n_cand; i += MERGE_THREADS)
+    mkeys[i] = merge_key(cv[i], ci[i]);
+  if (tid == 0) s_count = 0;
+
+  // The radix select: `lowest` becomes the smallest key of the k best (1,
+  // every finite key, where fewer than k are finite).
+  uint64_t prefix = 0, lowest = 1;
+  int need = k;
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    const uint64_t above = shift == 56 ? 0 : ~0ull << (shift + 8);  // the bytes found so far
+    for (int i = tid; i < 256; i += MERGE_THREADS) hist[i] = 0;
+    __syncthreads();
+    for (int base = 0; base < n_cand; base += MERGE_THREADS) {
+      const int i = base + tid;
+      int bin = 256;
+      if (i < n_cand) {
+        const uint64_t key = mkeys[i];
+        if (key != 0 && (key & above) == prefix) bin = static_cast<int>((key >> shift) & 255u);
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, bin);
+      if (bin < 256 && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // Lane l holds bins 255 - 8l down to 248 - 8l: a prefix sum over the
+      // lanes counts the keys in the bins above each lane's.
+      int c[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = hist[255 - 8 * lane - j];
+        sum += c[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += t;
+      }
+      int run = incl - sum;
+      if (run < need && need <= incl) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (run < need && need <= run + c[j]) {
+            s_bin = 255 - 8 * lane - j;
+            s_above = run;
+            s_in_bin = c[j];
+          }
+          run += c[j];
+        }
+      }
+      if (lane == 31 && incl < need) s_bin = -1;  // fewer keys than needed: take them all
+    }
+    __syncthreads();
+    const int bin = s_bin;
+    if (bin < 0) break;
+    need -= s_above;
+    prefix |= static_cast<uint64_t>(bin) << shift;
+    if (s_in_bin == need) {  // every key of this bin is in
+      lowest = prefix > 1 ? prefix : 1;
+      break;
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) written += __shfl_xor_sync(0xffffffffu, written, off);
-  for (int j = written + lane; j < k; j += 32) {
+
+  // Gather the keys at or above `lowest` (at most k: the keys are
+  // distinct), then rank each by counting.
+  for (int base = 0; base < n_cand; base += MERGE_THREADS) {
+    const int i = base + tid;
+    const bool in = i < n_cand && mkeys[i] >= lowest;
+    const unsigned ballot = __ballot_sync(0xffffffffu, in);
+    int slot = 0;
+    if (lane == 0 && ballot) slot = atomicAdd(&s_count, __popc(ballot));
+    slot = __shfl_sync(0xffffffffu, slot, 0) + __popc(ballot & ((1u << lane) - 1u));
+    if (in && slot < k) sel[slot] = mkeys[i];
+  }
+  __syncthreads();
+  const int count = min(s_count, k);
+  float* ov = out_v + query * k;
+  int* oi = out_i + query * k;
+  for (int t = tid; t < count; t += MERGE_THREADS) {
+    const uint64_t key = sel[t];
+    int rank = 0;
+    for (int j = 0; j < count; ++j) rank += sel[j] > key;
+    const Entry e = merge_entry(key);
+    ov[rank] = e.v;
+    oi[rank] = e.i;
+  }
+  for (int j = count + tid; j < k; j += MERGE_THREADS) {
     ov[j] = neg_inf();
     oi[j] = -1;
   }
 }
 
 // ---- host side ------------------------------------------------------------
+
+// Raise a kernel's dynamic shared-memory limit to `bytes` once per device
+// (the attribute is per device): `done` is the kernel's own set of devices,
+// bit d for device d, so the launches after the first skip the call.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+cudaError_t launch_merge(const void* part_v, const void* part_i, int B, int n_chunks, int k,
+                         void* out_v, void* out_i, cudaStream_t s) {
+  const int n_cand = n_chunks * k;
+  if (n_cand > MAX_CANDIDATES) return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> done{0};
+  const cudaError_t err = allow_smem(merge_kernel, MAX_CANDIDATES * 8, done);
+  if (err != cudaSuccess) return err;
+  merge_kernel<<<B, MERGE_THREADS, static_cast<size_t>(n_cand) * 8, s>>>(
+      static_cast<const float*>(part_v), static_cast<const int*>(part_i), n_cand, k,
+      static_cast<float*>(out_v), static_cast<int*>(out_i));
+  return cudaGetLastError();
+}
 
 template <typename T, int NWG>
 cudaError_t launch_chunks(CUtensorMapDataType type, const void* emb, const void* q, int B,
@@ -546,8 +773,8 @@ cudaError_t launch_chunks(CUtensorMapDataType type, const void* emb, const void*
   err = encode(&tm_e, type, sizeof(T), emb, size, D, BN);
   if (err != cudaSuccess) return err;
   auto kernel = chunk_topk_kernel<T, NWG>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  static std::atomic<uint64_t> done{0};  // one set of devices a template instance
+  err = allow_smem(kernel, static_cast<int>(SMEM_LIMIT), done);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + BQ - 1) / BQ, n_chunks);
   kernel<<<grid, (NWG + 1) * 128, smem, s>>>(tm_q, tm_e, B, D, size, k, stages, chunk_rows,
@@ -573,31 +800,30 @@ cudaError_t launch_typed(CUtensorMapDataType type, int bq, const void* emb, cons
 
 extern "C" {
 
-// The second pass alone: part_v/part_i [B, n_chunks, k] sorted lists into
-// out_v/out_i [B, k].
+// The second pass alone: part_v/part_i [B, n_chunks, k] lists (any order
+// within a list; -inf dead) into out_v/out_i [B, k]; n_chunks * k <= 16384.
 int rag_cosine_topk_merge(const void* part_v, const void* part_i, int B, int n_chunks, int k,
                           void* out_v, void* out_i, void* stream) {
-  const int threads = 256;
-  const int blocks = static_cast<int>((static_cast<int64_t>(B) * 32 + threads - 1) / threads);
-  merge_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_v), static_cast<const int*>(part_i), B, n_chunks, k,
-      static_cast<float*>(out_v), static_cast<int*>(out_i));
-  return cudaGetLastError();
+  if (B < 1 || k < 1 || k > MAX_K || n_chunks < 0) return cudaErrorInvalidValue;
+  return launch_merge(part_v, part_i, B, n_chunks, k, out_v, out_i,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // emb [cap, D] and q [B, D] row-major in one dtype (dtype 0 bf16, 1 fp16,
 // 2 f32), 16-byte aligned; rows >= size are ignored (size <= cap).
 // part_v/part_i are [B, n_chunks, k] scratch, out_v/out_i [B, k]. Requires
 // B >= 1, 1 <= k <= 256, D % 8 == 0, bq in {64, 128}, smem_bytes(bq, k,
-// stages) <= 232448, chunk_rows % 128 == 0 and n_chunks * chunk_rows >= size.
+// stages) <= 232448, chunk_rows % 128 == 0, n_chunks * chunk_rows >= size
+// and n_chunks * k <= 16384.
 int rag_cosine_topk(const void* emb, const void* q, int B, int D, int size, int k, int dtype,
                     int bq, int stages, int n_chunks, int chunk_rows, void* part_v,
                     void* part_i, void* out_v, void* out_i, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || k < 1 || k > MAX_K || D % 8 != 0 || chunk_rows % BN != 0)
+  if (B < 1 || k < 1 || k > MAX_K || D % 8 != 0 || chunk_rows % BN != 0 || n_chunks < 1 ||
+      static_cast<int64_t>(n_chunks) * k > MAX_CANDIDATES)
     return cudaErrorInvalidValue;
   if (size <= 0)  // nothing live: every slot dead
-    return rag_cosine_topk_merge(part_v, part_i, B, 0, k, out_v, out_i, stream);
+    return launch_merge(part_v, part_i, B, 0, k, out_v, out_i, s);
   cudaError_t err;
   switch (dtype) {
     case 0:
@@ -617,7 +843,7 @@ int rag_cosine_topk(const void* emb, const void* q, int B, int D, int size, int 
       err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  return rag_cosine_topk_merge(part_v, part_i, B, n_chunks, k, out_v, out_i, stream);
+  return launch_merge(part_v, part_i, B, n_chunks, k, out_v, out_i, s);
 }
 
 #ifdef COSINE_TOPK_PROFILE

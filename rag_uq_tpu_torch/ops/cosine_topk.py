@@ -12,7 +12,8 @@ rows, or the empty index). The Pallas constraints ``cap % block == 0`` and
 
 ``cuda_cosine_topk`` takes the plain version only for tensors on the CPU. For
 a CUDA tensor it launches a kernel or raises: up to ``MAX_K`` the heap kernel,
-in the configuration ``kernel_config`` picks from the dtype and k; above it
+in the plan ``plan`` makes from the dtype, k, the batch, the live rows and
+the card's SM count (``kernel_config``, ``chunking``); above it
 the large-k kernels (a ``wgmma`` score pass into a ``[B_chunk, ld]`` buffer,
 ``ld = score_stride(live)``, then a per-query histogram select and radix
 sort), with the queries chunked so the buffer stays within ``SCORE_BUDGET``
@@ -22,7 +23,9 @@ bytes. Each kernel is built with ``nvcc`` at its first launch
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import os
 import shutil
 import threading
@@ -50,7 +53,8 @@ _ROW_TILE = 128  # corpus rows per score tile in the kernel (BN)
 _BOX_BYTES = 128  # width of a TMA box: one 128-byte swizzle row
 _MAX_STAGES = 6
 _SCRATCH_BYTES = 128 * 8  # a consumer warp's candidate scratch
-_MAX_CHUNKS = 64
+MAX_CANDIDATES = 16_384  # n_chunks * k a query: the merge pass's shared memory
+_MIN_CHUNK_ROWS_PER_K = 2  # a chunk holds at least 2k rows (k best of half or less)
 _SCORE_ALIGN = 32  # floats: the large-k score rows start 128-byte aligned
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
@@ -75,21 +79,24 @@ def smem_bytes(query_tile: int, k: int, stages: int) -> int:
     )
 
 
-def kernel_config(dtype: torch.dtype, k: int) -> KernelConfig:
-    """The configuration the wrapper launches for a corpus dtype and a k.
+def kernel_config(dtype: torch.dtype, k: int, n_queries: int) -> KernelConfig:
+    """The configuration the wrapper launches for a corpus dtype, a k and a
+    batch of ``n_queries``.
 
     Every box is 128 bytes wide whatever the dtype (64 bf16/fp16 or 32 f32
-    columns), so only k and the query tile set the shared memory. BQ = 128
-    where three stages fit beside the ``[BQ, k]`` lists (k <= 121), else 64;
-    then as many stages as fit, at most 6. It refuses k > ``MAX_K``: the heap
-    kernel's lists no longer fit, and ``cuda_cosine_topk`` takes such k to the
-    large-k kernels, which need no configuration.
+    columns), so only k and the query tile set the shared memory. BQ = 64
+    (one consumer warpgroup) where the batch fits in it (B <= 64), so a small
+    batch does not load and multiply 128 query rows; otherwise BQ = 128 where
+    three stages fit beside the ``[BQ, k]`` lists (k <= 121), else 64; then
+    as many stages as fit, at most 6. It refuses k > ``MAX_K``: the heap
+    kernel's lists no longer fit, and ``cuda_cosine_topk`` takes such k to
+    the large-k kernels, which need no configuration.
     """
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes a bf16, fp16 or f32 corpus, got {dtype}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} is outside the kernel's limit [1, {MAX_K}]")
-    for bq in (128, 64):
+    for bq in ((64,) if n_queries <= 64 else (128, 64)):
         fixed = smem_bytes(bq, k, 0)
         stages = min(_MAX_STAGES, (SMEM_LIMIT - fixed) // ((bq + _ROW_TILE) * _BOX_BYTES + 16))
         if stages >= 3 or (bq == 64 and stages >= 2):
@@ -176,15 +183,45 @@ def build_all() -> Tuple[Built, Built]:
         return heap.result(), large.result()
 
 
-def chunking(n_queries: int, live: int, query_tile: int, n_sm: int) -> Tuple[int, int]:
-    """(n_chunks, chunk_rows): about one block per SM, chunks in row tiles."""
-    if live == 0:
-        return 1, _ROW_TILE
+def chunking(n_queries: int, live: int, query_tile: int, n_sm: int, k: int) -> Tuple[int, int]:
+    """(n_chunks, chunk_rows): the corpus split of the chunk pass.
+
+    About one block per SM: ``n_sm // query tiles`` chunks at most, and at
+    most ``MAX_CANDIDATES // k`` so the merge pass stages a query's
+    ``n_chunks * k`` candidates in shared memory. A chunk holds at least 2k
+    rows (rounded up to row tiles), so a query's candidates stay at most half
+    the live rows. Chunks are whole row tiles, and every live row
+    lies in exactly one (an empty index has one chunk).
+    """
     n_qtiles = -(-n_queries // query_tile)
     n_tiles = -(-live // _ROW_TILE)
-    n_chunks = max(1, min(n_sm // n_qtiles, n_tiles, _MAX_CHUNKS))
-    chunk_rows = -(-n_tiles // n_chunks) * _ROW_TILE
-    return -(-live // chunk_rows), chunk_rows
+    max_chunks = max(1, min(n_sm // n_qtiles, MAX_CANDIDATES // k))
+    min_tiles = -(-_MIN_CHUNK_ROWS_PER_K * k // _ROW_TILE)
+    chunk_rows = max(min_tiles, -(-n_tiles // max_chunks)) * _ROW_TILE
+    return max(1, -(-live // chunk_rows)), chunk_rows
+
+
+@dataclass(frozen=True)
+class Plan:
+    """Everything one launch of the heap kernel is given besides its tensors."""
+
+    config: KernelConfig
+    n_chunks: int
+    chunk_rows: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(dtype: torch.dtype, k: int, n_queries: int, live: int, n_sm: int) -> Plan:
+    """The heap kernel's plan for one launch (``kernel_config`` and
+    ``chunking``), cached: a server launches the same few shapes."""
+    cfg = kernel_config(dtype, k, n_queries)
+    return Plan(cfg, *chunking(n_queries, live, cfg.query_tile, n_sm, k))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of card ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def cuda_cosine_topk(
@@ -225,23 +262,31 @@ def cuda_cosine_topk(
         _large_topk(emb, q, live, k, vals, idx, stream)
         record_launch(large=True)
     else:
-        cfg = kernel_config(emb.dtype, k)
-        n_sm = torch.cuda.get_device_properties(emb.device).multi_processor_count
-        n_chunks, chunk_rows = chunking(n_q, live, cfg.query_tile, n_sm)
-        part_v = torch.empty((n_q, n_chunks, k), dtype=torch.float32, device=emb.device)
-        part_i = torch.empty((n_q, n_chunks, k), dtype=torch.int32, device=emb.device)
+        p = plan(emb.dtype, k, n_q, live, sm_count(emb.device.index))
+        # One scratch allocation: the [B, n_chunks, k] f32 values, then the
+        # int32 rows from the next 16-byte boundary (the merge's loads).
+        n_part = -(-n_q * p.n_chunks * k // 4) * 4
+        part = torch.empty(2 * n_part, dtype=torch.int32, device=emb.device)
         build()
-        with torch.cuda.device(emb.device):
+        with _current(emb.device):
             rc = _lib.rag_cosine_topk(
                 emb.data_ptr(), q.data_ptr(), n_q, dim, live, k,
-                _DTYPE_CODES[emb.dtype], cfg.query_tile, cfg.stages, n_chunks,
-                chunk_rows, part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+                _DTYPE_CODES[emb.dtype], p.config.query_tile, p.config.stages, p.n_chunks,
+                p.chunk_rows, part.data_ptr(), part.data_ptr() + 4 * n_part, vals.data_ptr(),
                 idx.data_ptr(), stream,
             )
         if rc != 0:
             raise RuntimeError(f"cosine top-k kernel launch failed: CUDA error {rc}")
         record_launch()
     return vals, idx
+
+
+def _current(device: torch.device):
+    """``device`` as the current device for a ctypes launch (a no-op, and
+    no host work, when it already is)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def score_stride(live: int) -> int:
@@ -297,7 +342,8 @@ def record_launch(large: bool = False) -> None:
 def merge_pass(
     part_v: torch.Tensor, part_i: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's second pass alone, over [B, n_chunks, k] sorted lists.
+    """The kernel's second pass alone, over [B, n_chunks, k] lists (each in
+    any order, -inf dead).
 
     For timing the pass apart (``chip_smoke.py``); the search path runs it
     inside ``cuda_cosine_topk`` and never calls this.
@@ -305,12 +351,17 @@ def merge_pass(
     if (part_v.dtype != torch.float32 or part_i.dtype != torch.int32
             or part_v.shape != part_i.shape or part_v.dim() != 3 or part_v.shape[2] != k
             or part_v.device.type != "cuda" or part_i.device != part_v.device
-            or not (part_v.is_contiguous() and part_i.is_contiguous())):
-        raise ValueError("the merge pass takes contiguous [B, n_chunks, k] f32 and int32 "
-                         "CUDA tensors")
+            or not (part_v.is_contiguous() and part_i.is_contiguous())
+            or part_v.data_ptr() % 16 or part_i.data_ptr() % 16):
+        raise ValueError("the merge pass takes contiguous, 16-byte aligned [B, n_chunks, k] "
+                         "f32 and int32 CUDA tensors")
     n_q, n_chunks, _ = part_v.shape
+    if n_chunks * k > MAX_CANDIDATES:
+        raise ValueError(f"the merge pass takes at most {MAX_CANDIDATES} candidates a query")
     vals = torch.empty((n_q, k), dtype=torch.float32, device=part_v.device)
     idx = torch.empty((n_q, k), dtype=torch.int32, device=part_v.device)
+    if n_q == 0:
+        return vals, idx
     build()
     with torch.cuda.device(part_v.device):
         rc = _lib.rag_cosine_topk_merge(
@@ -320,6 +371,57 @@ def merge_pass(
     if rc != 0:
         raise RuntimeError(f"cosine top-k merge launch failed: CUDA error {rc}")
     return vals, idx
+
+
+def merge_plain(
+    part_v: torch.Tensor, part_i: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge pass's plain twin: the rank rule over [B, n_chunks, k]
+    lists of distinct rows (each list in any order), value descending then
+    row ascending, -inf (dead) last.
+
+    Returns (vals [B, k] f32, rows [B, k] int32), -1 where the value is
+    -inf; values are the lists' own, bit for bit. For the tests and
+    ``chip_smoke.py``; never on the path.
+    """
+    n_q = part_v.shape[0]
+    v = part_v.reshape(n_q, -1)
+    rows = part_i.reshape(n_q, -1).long()
+    dead = torch.isneginf(v)
+    rows = torch.where(dead, torch.iinfo(torch.int64).max, rows)
+    order = torch.argsort(rows, dim=1, stable=True)
+    v, rows = v.gather(1, order), rows.gather(1, order)
+    # -0 ranks as +0 (a float comparison); the values kept are the lists'.
+    order = torch.argsort(v + 0.0, dim=1, descending=True, stable=True)[:, :k]
+    v, rows = v.gather(1, order), rows.gather(1, order)
+    if v.shape[1] < k:  # fewer candidates than k (no chunk)
+        pad = k - v.shape[1]
+        v = torch.cat([v, v.new_full((n_q, pad), float("-inf"))], dim=1)
+        rows = torch.cat([rows, rows.new_full((n_q, pad), -1)], dim=1)
+    return v, torch.where(torch.isneginf(v), -1, rows).to(torch.int32)
+
+
+def chunk_lists_plain(
+    emb: torch.Tensor, queries: torch.Tensor, size: int, k: int, chunk_rows: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk pass's plain twin: each chunk's k best rows for every query
+    (``cosine_topk_plain`` over the chunk's live rows), as [B, n_chunks, k]
+    sorted lists with corpus rows, -inf / -1 in dead slots. For the tests and
+    ``chip_smoke.py``; never on the path.
+    """
+    live = max(0, min(int(size), emb.shape[0]))
+    n_chunks = max(1, -(-live // chunk_rows))
+    n_q = queries.shape[0]
+    part_v = torch.full((n_q, n_chunks, k), float("-inf"), device=emb.device)
+    part_i = torch.full((n_q, n_chunks, k), -1, dtype=torch.int32, device=emb.device)
+    for c in range(n_chunks):
+        lo, hi = c * chunk_rows, min((c + 1) * chunk_rows, live)
+        if hi <= lo:
+            continue
+        kk = min(k, hi - lo)
+        v, i = cosine_topk_plain(emb[lo:hi], queries, hi - lo, kk)
+        part_v[:, c, :kk], part_i[:, c, :kk] = v, torch.where(i >= 0, i + lo, i)
+    return part_v, part_i
 
 
 def _check_cuda(what: str, *tensors: torch.Tensor) -> None:

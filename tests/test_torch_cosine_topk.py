@@ -6,6 +6,15 @@ CPU route (the plain twin) is held to the JAX package for fp16 and f32
 corpora and for pools above 128, against ``cosine_topk_single`` and the
 Pallas kernel in interpret mode.
 
+The heap kernel's two passes are modelled on the CPU by their plain twins:
+``chunk_lists_plain`` over each chunk of the plan the wrapper makes for a
+batch (``ops/cosine_topk.py::plan``), then ``merge_plain``. That model is
+held to ``cosine_topk_single`` and the Pallas kernel in interpret mode at the
+served, evaluation and training shapes scaled down to a few thousand rows,
+and at the edge cases (fewer live rows than k, none, all scores negative,
+ties planted across every chunk boundary, a batch that is not a multiple
+of the query tile): f32 corpora, values within 1e-6, rows equal.
+
 The large-k path's wrapper logic (the padded score stride and the query
 chunks by it) is checked against the kernel source, and its select rule,
 mirrored below in torch step by step (bins over [min, max], the bin b* of
@@ -57,6 +66,7 @@ def test_config_constants_match_the_kernel_source():
     assert _cu_constant("MAX_STAGES") == ck._MAX_STAGES
     assert _cu_constant("SMEM_LIMIT") == ck.SMEM_LIMIT
     assert _cu_constant("SCRATCH") * 8 == ck._SCRATCH_BYTES
+    assert _cu_constant("MAX_CANDIDATES") == ck.MAX_CANDIDATES
 
 
 def test_smem_formula_matches_the_kernel_comment():
@@ -72,28 +82,31 @@ def test_every_dtype_and_k_gets_a_config_that_fits(dtype_name):
     assert dtype_name in {"bfloat16", "float16", "float32"}
     DenseIndexConfig(dtype=dtype_name)  # every dtype the index accepts
     dtype = _DTYPES[dtype_name]
-    seen = set()
-    for k in range(1, ck.MAX_K + 1):
-        cfg = ck.kernel_config(dtype, k)
-        assert cfg.query_tile in (64, 128)
-        assert 2 <= cfg.stages <= ck._MAX_STAGES
-        assert cfg.smem_bytes == ck.smem_bytes(cfg.query_tile, k, cfg.stages)
-        assert cfg.smem_bytes <= 232_448
-        # one more stage would not fit, unless the ring is already at its most
-        assert cfg.stages == ck._MAX_STAGES or \
-            ck.smem_bytes(cfg.query_tile, k, cfg.stages + 1) > 232_448
-        seen.add(cfg.query_tile)
-    assert seen == {64, 128}
-    assert ck.kernel_config(dtype, 50).query_tile == 128  # the main path's pool
+    for n_queries in (1, 64, 65, 2048):
+        seen = set()
+        for k in range(1, ck.MAX_K + 1):
+            cfg = ck.kernel_config(dtype, k, n_queries)
+            assert cfg.query_tile in (64, 128)
+            assert 2 <= cfg.stages <= ck._MAX_STAGES
+            assert cfg.smem_bytes == ck.smem_bytes(cfg.query_tile, k, cfg.stages)
+            assert cfg.smem_bytes <= 232_448
+            # one more stage would not fit, unless the ring is already at its most
+            assert cfg.stages == ck._MAX_STAGES or \
+                ck.smem_bytes(cfg.query_tile, k, cfg.stages + 1) > 232_448
+            seen.add(cfg.query_tile)
+        # a batch that fits one warpgroup's 64 rows takes the 64-row tile
+        assert seen == ({64} if n_queries <= 64 else {64, 128})
+    assert ck.kernel_config(dtype, 50, 2048).query_tile == 128  # the main path's pool
+    assert ck.kernel_config(dtype, 50, 1).query_tile == 64  # a served query
 
 
 def test_config_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=str(ck.MAX_K)):
-        ck.kernel_config(torch.bfloat16, ck.MAX_K + 1)
+        ck.kernel_config(torch.bfloat16, ck.MAX_K + 1, 2048)
     with pytest.raises(ValueError):
-        ck.kernel_config(torch.bfloat16, 0)
+        ck.kernel_config(torch.bfloat16, 0, 2048)
     with pytest.raises(TypeError):
-        ck.kernel_config(torch.float64, 50)
+        ck.kernel_config(torch.float64, 50, 2048)
 
 
 CASES = [
@@ -145,6 +158,128 @@ def test_wrapper_matches_pallas_interpret(rng, case):
     np.testing.assert_allclose(tv[live], pv[live], atol=1e-3, rtol=0)
     agree = tie_aware_agreement(tv, ti, pv, pi, rtol=0, atol=1e-3)
     assert agree["tie_aware_agreement"] == 1.0, agree["violations"]
+
+
+# The two-pass model at the table's shapes, scaled down: (bsz, live, cap, dim, k).
+TWO_PASS_SHAPES = {
+    "served_b1": (1, 3000, 4096, 64, 50),
+    "served_b8": (8, 3000, 4096, 64, 50),
+    "served_b64": (64, 3000, 4096, 64, 50),
+    "served_b256": (256, 3000, 4096, 64, 50),
+    "eval_b72": (72, 2000, 2048, 32, 50),
+    "eval_b128": (128, 2000, 2048, 32, 50),
+    "train_b512": (512, 2000, 2048, 32, 50),
+    "served_b65_k10": (65, 2500, 4096, 32, 10),
+    "served_b1_k256": (1, 3000, 4096, 32, 256),
+}
+
+
+def _two_pass(emb, q, size, k):
+    """The heap kernel's two passes by their plain twins, in the wrapper's
+    plan for this batch (132 SMs, as an H100's)."""
+    p = ck.plan(emb.dtype, k, q.shape[0], size, 132)
+    part_v, part_i = ck.chunk_lists_plain(emb, q, size, k, p.chunk_rows)
+    assert part_v.shape == (q.shape[0], p.n_chunks, k)
+    return ck.merge_plain(part_v, part_i, k), p
+
+
+def _hold_to_jax(tv, ti, emb, q, size, k):
+    """Values within 1e-6 and rows equal against cosine_topk_single and the
+    Pallas kernel in interpret mode (f32 corpus)."""
+    cap = emb.shape[0]
+    for jv, ji in (
+        jax_topk.cosine_topk_single(jnp.asarray(emb), jnp.asarray(q), jnp.int32(size), k),
+        pallas_cosine_topk(jnp.asarray(emb), jnp.asarray(q), jnp.int32(size), k=k,
+                           block=min(1024, cap), interpret=True),
+    ):
+        jv, ji = np.asarray(jv, dtype=np.float32), np.asarray(ji)
+        np.testing.assert_array_equal(ti.numpy(), ji)
+        np.testing.assert_array_equal(np.isneginf(tv.numpy()), np.isneginf(jv))
+        live = np.isfinite(jv)
+        np.testing.assert_allclose(tv.numpy()[live], jv[live], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(TWO_PASS_SHAPES))
+def test_two_pass_model_matches_jax(rng, name):
+    bsz, size, cap, dim, k = TWO_PASS_SHAPES[name]
+    emb, q = _mk(rng, cap, dim, bsz)
+    (tv, ti), p = _two_pass(torch.from_numpy(emb), torch.from_numpy(q), size, k)
+    assert p.n_chunks > 1
+    _hold_to_jax(tv, ti, emb, q, size, k)
+
+
+@pytest.mark.parametrize("case", ["size_lt_k", "empty", "all_negative"])
+@pytest.mark.parametrize("bsz", [1, 72])
+def test_two_pass_model_edge_cases(rng, case, bsz):
+    """Fewer live rows than k, an empty index, and every score negative
+    past a partial last tile (rows beyond `size` would score 0 and win)."""
+    emb, q = _mk(rng, 2048, 32, bsz)
+    size, k = {"size_lt_k": (30, 50), "empty": (0, 50), "all_negative": (1900, 50)}[case]
+    if case == "all_negative":
+        emb, q = np.abs(emb), -np.abs(q)
+    (tv, ti), _ = _two_pass(torch.from_numpy(emb), torch.from_numpy(q), size, k)
+    _hold_to_jax(tv, ti, emb, q, size, k)
+    assert (ti[:, min(size, k):] == -1).all()
+
+
+@pytest.mark.parametrize("bsz", [1, 65])
+def test_two_pass_model_ties_across_chunk_boundaries(rng, bsz):
+    """Query i finds four rows equal to itself, two on each side of a chunk
+    boundary of the plan: they come first, lowest row first."""
+    size, k = 3000, 50
+    emb, q = _mk(rng, 4096, 32, bsz)
+    p = ck.plan(torch.float32, k, bsz, size, 132)
+    planted = []
+    for c in range(1, p.n_chunks):
+        b = c * p.chunk_rows
+        i = (c - 1) % bsz
+        emb[b - 2 : b + 2] = q[i]
+        planted.append((i, list(range(b - 2, b + 2))))
+    (tv, ti), _ = _two_pass(torch.from_numpy(emb), torch.from_numpy(q), size, k)
+    _hold_to_jax(tv, ti, emb, q, size, k)
+    for i, rows in planted:
+        if bsz > 1:
+            assert ti[i, :4].tolist() == rows
+    if bsz == 1:  # every boundary plants the same query: its first k tied rows, in order
+        tied = [r for _, rows in planted for r in rows][:k]
+        assert ti[0, : len(tied)].tolist() == tied
+
+
+def _rank_rule(part_v, part_i, k):
+    """The rank rule, one query at a time in Python: value descending (-0 as
+    +0), row ascending, dead (-inf) out."""
+    out_v, out_i = [], []
+    for v, r in zip(part_v.reshape(part_v.shape[0], -1).tolist(),
+                    part_i.reshape(part_i.shape[0], -1).tolist()):
+        live = sorted((x for x in zip(v, r) if x[0] != float("-inf")),
+                      key=lambda x: (-x[0], x[1]))[:k]
+        out_v.append([x[0] for x in live] + [float("-inf")] * (k - len(live)))
+        out_i.append([x[1] for x in live] + [-1] * (k - len(live)))
+    return out_v, out_i
+
+
+def test_merge_plain_applies_the_rank_rule(rng):
+    """Sorted chunk lists with heavy ties, -0 beside +0 and dead tails:
+    merge_plain equals the rank rule, values bit for bit."""
+    n_q, n_chunks, k = 5, 7, 12
+    part_v = np.full((n_q, n_chunks, k), -np.inf, np.float32)
+    part_i = np.full((n_q, n_chunks, k), -1, np.int32)
+    for b in range(n_q):
+        for c in range(n_chunks):
+            n = int(rng.integers(0, k + 1))
+            vals = rng.choice(np.array([1.0, 0.5, 0.0, -0.0, -0.5], np.float32), size=n)
+            rows = c * 100 + rng.choice(100, size=n, replace=False)
+            order = sorted(range(n), key=lambda j: (-vals[j], rows[j]))
+            part_v[b, c, :n], part_i[b, c, :n] = vals[order], rows[order]
+    tv, ti = ck.merge_plain(torch.from_numpy(part_v), torch.from_numpy(part_i), k)
+    rv, ri = _rank_rule(part_v, part_i, k)
+    assert ti.tolist() == ri
+    np.testing.assert_array_equal(tv.numpy().view(np.int32),
+                                  np.asarray(rv, np.float32).view(np.int32))
+    assert ti.dtype == torch.int32 and tv.dtype == torch.float32
+    none_v, none_i = ck.merge_plain(torch.empty((2, 0, 3)),
+                                    torch.empty((2, 0, 3), dtype=torch.int32), 3)
+    assert torch.isneginf(none_v).all() and (none_i == -1).all()
 
 
 def test_merge_pass_refuses_cpu_tensors_before_building(monkeypatch):

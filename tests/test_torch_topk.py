@@ -187,13 +187,32 @@ def test_wrapper_rejects_bad_k(rng):
 @pytest.mark.parametrize("k", [1, 50, 121, 128, 256])
 def test_chunking_covers_live_rows(k):
     """The kernel's chunk split covers every live row exactly once, in row
-    tiles, for both query tiles of kernel_config (k <= 121 and k > 121)."""
-    query_tile = ck.kernel_config(torch.bfloat16, k).query_tile
+    tiles, for both query tiles of kernel_config (B <= 64 or k > 121, and
+    the rest), at the shapes the port's paths launch (served batches over
+    20,000 rows, the evaluation chunks, the training and gloo shards, the
+    parity arm, the last shard and the main shape). Its bounds: about one
+    block per SM (more only where the query tiles alone exceed the SMs), at
+    most MAX_CANDIDATES candidates a query, and chunks of at least 2k rows."""
+    n_sm = 132
     for n_q, live in [(2048, 100_000), (1, 100_000), (3, 5), (64, 131_072), (5, 0),
-                      (2047, 100_000), (20_000, 131_072)]:
-        n_chunks, rows = ck.chunking(n_q, live, query_tile, 132)
-        assert rows % 128 == 0 and 1 <= n_chunks <= 64
+                      (2047, 100_000), (20_000, 131_072),
+                      (1, 20_000), (8, 20_000), (64, 20_000), (256, 20_000), (72, 5_000),
+                      (128, 5_000), (512, 10_240), (512, 5_000), (800, 4_000), (2048, 1_696)]:
+        query_tile = ck.kernel_config(torch.bfloat16, k, n_q).query_tile
+        n_chunks, rows = ck.chunking(n_q, live, query_tile, n_sm, k)
+        assert rows % 128 == 0 and n_chunks >= 1
+        assert n_chunks * k <= ck.MAX_CANDIDATES
+        n_qtiles = -(-n_q // query_tile)
+        assert n_chunks * n_qtiles <= max(n_sm, n_qtiles)
+        assert rows >= 2 * k
         assert n_chunks * rows >= live and (n_chunks - 1) * rows < max(live, 1)
         starts = [c * rows for c in range(n_chunks)]
         covered = sum(min(s + rows, live) - s for s in starts)
         assert covered == live
+        plan = ck.plan(torch.bfloat16, k, n_q, live, n_sm)
+        assert (plan.n_chunks, plan.chunk_rows) == (n_chunks, rows)
+        assert plan.config == ck.kernel_config(torch.bfloat16, k, n_q)
+    # The main shape keeps its plan: 16 query tiles of 128, 8 chunks.
+    assert ck.chunking(2048, 100_000, 128, n_sm, 50) == (8, 12_544)
+    # A served batch takes one 64-row query tile and about one chunk an SM.
+    assert ck.chunking(1, 20_000, 64, n_sm, 50) == (79, 256)
