@@ -11,6 +11,7 @@ import torch
 
 from rag_uq_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_uq_tpu_torch.text.tokenize import fnv1a_64, tokenize
+from rag_uq_tpu_torch.utils import profiling
 
 
 class Sha256Embedder:
@@ -99,23 +100,26 @@ class NgramHashEmbedder:
         return feats[: self.max_len]
 
     def _hash_batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
-        ids = np.zeros((len(texts), self.max_len), dtype=np.int32)
-        lengths = np.zeros((len(texts),), dtype=np.int32)
-        for i, text in enumerate(texts):
-            feats = self._features(text)
-            lengths[i] = len(feats)
-            if feats:
-                ids[i, : len(feats)] = np.asarray(feats, dtype=np.int32)
-        return ids, lengths
+        with profiling.span("embed.hash"):
+            ids = np.zeros((len(texts), self.max_len), dtype=np.int32)
+            lengths = np.zeros((len(texts),), dtype=np.int32)
+            for i, text in enumerate(texts):
+                feats = self._features(text)
+                lengths[i] = len(feats)
+                if feats:
+                    ids[i, : len(feats)] = np.asarray(feats, dtype=np.int32)
+            return ids, lengths
 
     def encode_device(self, ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """Embeddings [B, dim] f32 on the device for pre-hashed features."""
-        return bag_embed(self.table, ids.to(self.device), lengths.to(self.device))
+        with profiling.span("embed.bag", cuda=self.table.is_cuda):
+            return bag_embed(self.table, ids.to(self.device), lengths.to(self.device))
 
     def encode(self, texts: Sequence[str]) -> np.ndarray:
         ids, lengths = self._hash_batch(texts)
         out = self.encode_device(torch.from_numpy(ids), torch.from_numpy(lengths))
-        return out.cpu().numpy()
+        with profiling.span("embed.readback"):
+            return out.cpu().numpy()
 
     def encode_mesh(self, texts: Sequence[str], mesh) -> np.ndarray:
         """Batch embedding data-parallel over the mesh (``encode_on_mesh``)."""

@@ -34,6 +34,7 @@ from rag_uq_tpu_torch.embed.base import Embedder, get_embedder
 from rag_uq_tpu_torch.ops.cosine_topk import cuda_cosine_topk
 from rag_uq_tpu_torch.ops.topk import cosine_topk, gather_scores
 from rag_uq_tpu_torch.text.tokenize import TOKENIZER_VERSION
+from rag_uq_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -136,19 +137,20 @@ class DenseIndex:
         new_docs = list(seen.values())
         if not new_docs:
             return 0
-        n_pad_total = -(-len(new_docs) // batch_size) * batch_size
-        self._grow(self._size + n_pad_total)
-        for i in range(0, len(new_docs), batch_size):
-            batch = new_docs[i : i + batch_size]
-            texts = [d.text for d in batch]
-            texts += [""] * (batch_size - len(batch))
-            vecs = self.embedder.encode(texts)
-            if self.config.normalize:
-                vecs = _normalize(vecs)
-            self._write(self._size, vecs)
-            for d in batch:
-                self.store.append(d)
-            self._size += len(batch)
+        with profiling.span("dense.add"):
+            n_pad_total = -(-len(new_docs) // batch_size) * batch_size
+            self._grow(self._size + n_pad_total)
+            for i in range(0, len(new_docs), batch_size):
+                batch = new_docs[i : i + batch_size]
+                texts = [d.text for d in batch]
+                texts += [""] * (batch_size - len(batch))
+                vecs = self.embedder.encode(texts)
+                if self.config.normalize:
+                    vecs = _normalize(vecs)
+                self._write(self._size, vecs)
+                for d in batch:
+                    self.store.append(d)
+                self._size += len(batch)
         logger.info("Dense index: added %d docs, total %d", len(new_docs), self._size)
         return len(new_docs)
 
@@ -159,14 +161,15 @@ class DenseIndex:
         keep = [i for i, d in enumerate(documents) if d.id not in self.store]
         if not keep:
             return 0
-        vecs = np.asarray(vectors, dtype=np.float32)[keep]
-        if self.config.normalize:
-            vecs = _normalize(vecs)
-        self._grow(self._size + len(keep))
-        self._write(self._size, vecs)
-        for i in keep:
-            self.store.append(documents[i])
-        self._size += len(keep)
+        with profiling.span("dense.add"):
+            vecs = np.asarray(vectors, dtype=np.float32)[keep]
+            if self.config.normalize:
+                vecs = _normalize(vecs)
+            self._grow(self._size + len(keep))
+            self._write(self._size, vecs)
+            for i in keep:
+                self.store.append(documents[i])
+            self._size += len(keep)
         return len(keep)
 
     # -- queries ---------------------------------------------------------------
@@ -174,10 +177,13 @@ class DenseIndex:
     def embed_queries(self, queries: Sequence[str]) -> torch.Tensor:
         """L2-normalized query vectors [B, D_stored] f32 on the index's
         device, zero-padded to the stored width."""
-        vecs = _normalize(self.embedder.encode(queries))
-        return self._padded(
-            torch.from_numpy(np.ascontiguousarray(vecs, dtype=np.float32)).to(self.device)
-        )
+        with profiling.span("embed"):
+            vecs = self.embedder.encode(queries)
+            with profiling.span("embed.upload"):
+                vecs = _normalize(vecs)
+                return self._padded(
+                    torch.from_numpy(np.ascontiguousarray(vecs, dtype=np.float32)).to(self.device)
+                )
 
     def _query_vectors(self, queries: Sequence[str], q_vecs) -> torch.Tensor:
         if q_vecs is None:

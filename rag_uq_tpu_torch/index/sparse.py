@@ -1,7 +1,7 @@
 """BM25 sparse index: the counterpart of ``rag_uq_tpu/index/sparse.py::BM25Index``.
 
 The host build (native C++ tokenizer, or the Python one when that does not
-build), ``host_csr`` and the two-tier device layout of ``_sync_locked`` are
+build), ``host_csr`` and the two-tier device layout of ``_sync_device`` are
 the JAX package's, computed with the same numpy code; the device arrays are
 torch tensors on the index's device. The Okapi idf follows
 ``rank_bm25.BM25Okapi``: ln((N-df+0.5)/(df+0.5)), with strictly negative
@@ -39,6 +39,7 @@ from rag_uq_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_uq_tpu_torch.core.types import DocStore, Document
 from rag_uq_tpu_torch.ops import bm25 as bm25_ops
 from rag_uq_tpu_torch.text.tokenize import TOKENIZER_VERSION, Vocab, tokenize
+from rag_uq_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -206,10 +207,11 @@ class BM25Index:
             fresh = list(seen.values())
             if not fresh:
                 return 0
-            if self._native is not None:
-                self._add_documents_native(fresh)
-            else:
-                self._add_documents_python(fresh)
+            with profiling.span("bm25.build"):
+                if self._native is not None:
+                    self._add_documents_native(fresh)
+                else:
+                    self._add_documents_python(fresh)
             self._dirty = True
             logger.info(
                 "Added %d documents to BM25 index. Total: %d",
@@ -315,10 +317,15 @@ class BM25Index:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _sync_locked(self) -> Dict[str, object]:
-        """The two-tier device layout of ``index/sparse.py:313-502``."""
+        """The device layout, rebuilt when the host buffers changed."""
         if self._device is not None and not self._dirty:
             return self._device
+        profiling.count("bm25.syncs")
+        with profiling.span("bm25.sync"):
+            return self._sync_device()
 
+    def _sync_device(self) -> Dict[str, object]:
+        """The two-tier device layout of ``index/sparse.py:313-502``."""
         csr = self.host_csr()
         n_docs = len(self.store)
         n_post = self._n_postings

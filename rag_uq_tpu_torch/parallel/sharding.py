@@ -245,7 +245,7 @@ def bm25_twotier_layout(
 ) -> Dict[str, Any]:
     """Per-shard two-tier BM25 layout with global statistics.
 
-    The sharded twin of ``BM25Index._sync_locked``'s split: each shard holds
+    The sharded twin of ``BM25Index._sync_device``'s split: each shard holds
     the postings of its doc range as (a) a dense ``[T, shard_cap]`` impact
     matrix of the high-df terms and (b) packed low-tier posting slices. The
     dense-term set comes from GLOBAL document frequencies (the same

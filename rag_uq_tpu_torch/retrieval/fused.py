@@ -30,6 +30,7 @@ from rag_uq_tpu_torch.ops import bm25 as bm25_ops
 from rag_uq_tpu_torch.ops.cosine_topk import cuda_cosine_topk
 from rag_uq_tpu_torch.ops.topk import cosine_topk, cosine_topk_single, stable_topk
 from rag_uq_tpu_torch.router.model import RouterModule, fuse_hybrid
+from rag_uq_tpu_torch.utils import profiling
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -217,54 +218,61 @@ def make_fused_hybrid_query(
     @torch.no_grad()
     def fused(state: Dict[str, Any], q_vecs: torch.Tensor, qterms: Dict[str, torch.Tensor]):
         emb = state["emb"]
-        dvals, didx = dense_pool(emb, q_vecs, state["size"], pool, dense_mode, block)
-        dvals = torch.where(didx >= 0, dvals, 0.0)
+        on_card = emb.is_cuda
+        with profiling.span("fused", cuda=on_card):
+            with profiling.span("fused.dense_pool", cuda=on_card):
+                dvals, didx = dense_pool(emb, q_vecs, state["size"], pool, dense_mode, block)
+            dvals = torch.where(didx >= 0, dvals, 0.0)
+            with profiling.span("fused.bm25_pool", cuda=on_card):
+                bvals, bidx = _bm25_pool(state, qterms)
+            with profiling.span("fused.tail", cuda=on_card):
+                return fuse_pools_select(
+                    bvals, bidx, dvals, didx, k,
+                    router_module=router_module, router_width=router_width,
+                )
+
+    def _bm25_pool(state: Dict[str, Any], qterms: Dict[str, torch.Tensor]):
+        emb = state["emb"]
         if exact_bm25:
             all_scores = bm25_ops.score_all(
                 state["indptr"], state["post_doc"], state["post_w"],
                 qterms["qtids"], emb.shape[0], max_df,
             )
-            bvals, bidx = bm25_ops.topk_from_scores(all_scores, pool)
+            return bm25_ops.topk_from_scores(all_scores, pool)
+        if sparse_mode == "scatter":
+            bvals, bidx = bm25_ops.topk_lowscatter(
+                state["low_ranges"], state["post_packed"],
+                state["term_row"], state["impact"],
+                qterms["qtids_base"], pool, beam=beam, approx=approx_topk,
+                impact_scale=state["impact_scale"],
+                active_rows=qterms.get("active_rows"),
+                rows_compact=qterms.get("rows_compact"),
+                low_blocks=state.get("low_blocks"),
+                low_row=state.get("low_row"),
+            )
         else:
-            if sparse_mode == "scatter":
-                bvals, bidx = bm25_ops.topk_lowscatter(
-                    state["low_ranges"], state["post_packed"],
-                    state["term_row"], state["impact"],
-                    qterms["qtids_base"], pool, beam=beam, approx=approx_topk,
-                    impact_scale=state["impact_scale"],
-                    active_rows=qterms.get("active_rows"),
-                    rows_compact=qterms.get("rows_compact"),
-                    low_blocks=state.get("low_blocks"),
-                    low_row=state.get("low_row"),
-                )
-            else:
-                bvals, bidx = bm25_ops.topk_twotier(
-                    state["low_ranges"], state["post_packed"],
-                    state["term_row"], state["impact"],
-                    qterms["qtids_base"], pool, beam=beam, approx=approx_topk,
-                    lsel=lsel if approx_topk else 0,
-                    impact_scale=state["impact_scale"], nonneg=nonneg,
-                )
-            if "delta_indptr" in state:
-                # Live-ingest delta: score the recently added docs
-                # exhaustively (few) and merge them into the BM25 pool.
-                dscores = bm25_ops.score_all(
-                    state["delta_indptr"], state["delta_post_doc"],
-                    state["delta_post_w"], qterms["qtids"], delta_cap, delta_max_df,
-                )
-                dv, di = bm25_ops.topk_from_scores(dscores, min(pool, delta_cap))
-                di = torch.where(di >= 0, di + state["delta_base_docs"], -1)
-                cat_v = torch.cat([bvals, dv], dim=-1)
-                cat_i = torch.cat([bidx, di], dim=-1)
-                bvals, sel = stable_topk(cat_v, pool)
-                bidx = torch.gather(cat_i, -1, sel)
-            dead = bvals <= 0.0
-            bvals = torch.where(dead, 0.0, bvals)
-            bidx = torch.where(dead, -1, bidx)
-        return fuse_pools_select(
-            bvals, bidx, dvals, didx, k,
-            router_module=router_module, router_width=router_width,
-        )
+            bvals, bidx = bm25_ops.topk_twotier(
+                state["low_ranges"], state["post_packed"],
+                state["term_row"], state["impact"],
+                qterms["qtids_base"], pool, beam=beam, approx=approx_topk,
+                lsel=lsel if approx_topk else 0,
+                impact_scale=state["impact_scale"], nonneg=nonneg,
+            )
+        if "delta_indptr" in state:
+            # Live-ingest delta: score the recently added docs
+            # exhaustively (few) and merge them into the BM25 pool.
+            dscores = bm25_ops.score_all(
+                state["delta_indptr"], state["delta_post_doc"],
+                state["delta_post_w"], qterms["qtids"], delta_cap, delta_max_df,
+            )
+            dv, di = bm25_ops.topk_from_scores(dscores, min(pool, delta_cap))
+            di = torch.where(di >= 0, di + state["delta_base_docs"], -1)
+            cat_v = torch.cat([bvals, dv], dim=-1)
+            cat_i = torch.cat([bidx, di], dim=-1)
+            bvals, sel = stable_topk(cat_v, pool)
+            bidx = torch.gather(cat_i, -1, sel)
+        dead = bvals <= 0.0
+        return torch.where(dead, 0.0, bvals), torch.where(dead, -1, bidx)
 
     return fused
 
@@ -286,32 +294,37 @@ def encode_for_fused(
     0-padded dense-tier impact rows any query in the batch touches) and
     ``rows_compact`` (each query slot's compact row, or -1).
     """
-    device = bm25_index.device
-    qtids = bm25_index.encode_queries(queries)
-    base_dev = bm25_index._device
-    if base_dev is not None:
-        base_vcap = base_dev["indptr"].shape[0] - 1
-        qtids_base = np.where(qtids < base_vcap, qtids, -1)
-    else:
-        qtids_base = qtids
-    out = {
-        "qtids": torch.from_numpy(qtids).to(device),
-        "qtids_base": torch.from_numpy(np.ascontiguousarray(qtids_base)).to(device),
-    }
-    if active_compaction and base_dev is not None:
-        host_term_row = bm25_index._term_row_host
-        safe = np.where(qtids_base >= 0, qtids_base, 0)
-        rows = np.where(qtids_base >= 0, host_term_row[safe], -1)
-        uniq = np.unique(rows[rows >= 0])
-        ta_cap = int(_next_pow2_host(max(uniq.shape[0], 1), floor=64))
-        active = np.zeros(ta_cap, dtype=np.int32)
-        active[: uniq.shape[0]] = uniq
-        remap = np.full(base_dev["impact"].shape[0], -1, dtype=np.int32)
-        remap[uniq] = np.arange(uniq.shape[0], dtype=np.int32)
-        rows_compact = np.where(rows >= 0, remap[np.maximum(rows, 0)], -1)
-        out["active_rows"] = torch.from_numpy(active).to(device)
-        out["rows_compact"] = torch.from_numpy(rows_compact.astype(np.int32)).to(device)
-    return out
+    with profiling.span("terms"):
+        device = bm25_index.device
+        with profiling.span("terms.tokenize"):
+            qtids = bm25_index.encode_queries(queries)
+        base_dev = bm25_index._device
+        if base_dev is not None:
+            base_vcap = base_dev["indptr"].shape[0] - 1
+            qtids_base = np.where(qtids < base_vcap, qtids, -1)
+        else:
+            qtids_base = qtids
+        out = {
+            "qtids": torch.from_numpy(qtids).to(device),
+            "qtids_base": torch.from_numpy(np.ascontiguousarray(qtids_base)).to(device),
+        }
+        if active_compaction and base_dev is not None:
+            with profiling.span("terms.compact"):
+                host_term_row = bm25_index._term_row_host
+                safe = np.where(qtids_base >= 0, qtids_base, 0)
+                rows = np.where(qtids_base >= 0, host_term_row[safe], -1)
+                uniq = np.unique(rows[rows >= 0])
+                ta_cap = int(_next_pow2_host(max(uniq.shape[0], 1), floor=64))
+                profiling.count("bm25.high_rows_active", uniq.shape[0])
+                profiling.count("bm25.high_rows_padded", ta_cap)
+                active = np.zeros(ta_cap, dtype=np.int32)
+                active[: uniq.shape[0]] = uniq
+                remap = np.full(base_dev["impact"].shape[0], -1, dtype=np.int32)
+                remap[uniq] = np.arange(uniq.shape[0], dtype=np.int32)
+                rows_compact = np.where(rows >= 0, remap[np.maximum(rows, 0)], -1)
+                out["active_rows"] = torch.from_numpy(active).to(device)
+                out["rows_compact"] = torch.from_numpy(rows_compact.astype(np.int32)).to(device)
+        return out
 
 
 def build_index_state(dense_index, bm25_index, allow_delta: bool = False) -> Dict[str, Any]:

@@ -29,6 +29,7 @@ from rag_uq_tpu_torch.retrieval.fused import (
     make_fused_hybrid_query,
     union_dedup,
 )
+from rag_uq_tpu_torch.utils import profiling
 
 
 class HybridRetriever:
@@ -125,6 +126,7 @@ class HybridRetriever:
         if self._fused_cache_key != self._cache_key():
             with self._fused_lock:
                 if self._fused_cache_key != self._cache_key():
+                    profiling.count("fused_state.rebuilds")
                     self._fused_state_cache = build_index_state(
                         self.dense_index, self.bm25_index,
                         allow_delta=self.bm25_index.config.delta_sync_fraction > 0,
@@ -151,29 +153,32 @@ class HybridRetriever:
         ``lsel`` truncation, as in the JAX package). ``sparse_mode`` selects
         the BM25 pool op, "twotier" (the default) or "scatter".
         """
-        pool = min(retrieval_pool_size, max(len(self.documents), 1))
-        state = self._fused_state()
-        dev = self.bm25_index._device
-        delta = self.bm25_index._delta_device
-        fused = make_fused_hybrid_query(
-            router_module=router.module if router is not None else None,
-            router_width=router.trained_num_passages if router is not None else None,
-            k=min(top_k, 2 * pool),
-            pool=pool,
-            beam=dev["beam"],
-            approx_topk=approx,
-            nonneg=dev["nonneg"],
-            delta_cap=delta["n_docs_cap"] if delta is not None else 0,
-            delta_max_df=delta["max_df"] if delta is not None else 0,
-            sparse_mode=sparse_mode,
-            lsel=self.bm25_index.config.lsel,
-        )
-        q_vecs = self.dense_index.embed_queries(queries)
-        qterms = encode_for_fused(
-            self.bm25_index, queries, active_compaction=(sparse_mode == "scatter")
-        )
-        vals, pos = fused(state, q_vecs, qterms)
-        return vals.cpu().numpy(), pos.cpu().numpy().astype(np.int32)
+        with profiling.span("search", n=len(queries)):
+            pool = min(retrieval_pool_size, max(len(self.documents), 1))
+            with profiling.span("search.state"):
+                state = self._fused_state()
+            dev = self.bm25_index._device
+            delta = self.bm25_index._delta_device
+            fused = make_fused_hybrid_query(
+                router_module=router.module if router is not None else None,
+                router_width=router.trained_num_passages if router is not None else None,
+                k=min(top_k, 2 * pool),
+                pool=pool,
+                beam=dev["beam"],
+                approx_topk=approx,
+                nonneg=dev["nonneg"],
+                delta_cap=delta["n_docs_cap"] if delta is not None else 0,
+                delta_max_df=delta["max_df"] if delta is not None else 0,
+                sparse_mode=sparse_mode,
+                lsel=self.bm25_index.config.lsel,
+            )
+            q_vecs = self.dense_index.embed_queries(queries)
+            qterms = encode_for_fused(
+                self.bm25_index, queries, active_compaction=(sparse_mode == "scatter")
+            )
+            vals, pos = fused(state, q_vecs, qterms)
+            with profiling.span("search.readback"):
+                return vals.cpu().numpy(), pos.cpu().numpy().astype(np.int32)
 
     # -- hybrid search --------------------------------------------------------------
 

@@ -22,6 +22,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Sequence
 
+from rag_uq_tpu_torch.utils import profiling
+
 BUILD_DIR_ENV = "RAG_UQ_TPU_TORCH_BUILD_DIR"
 _REPO_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rag_uq_tpu_torch"
 
@@ -78,16 +80,19 @@ def build_shared_library(
     out = library_path(name, sources, command)
     log_path = out.with_suffix(".log")
     if out.exists():
+        profiling.count("build.cache_hits")
         log = log_path.read_text() if log_path.exists() else ""
         return Built(out, 0.0, log)
+    profiling.count("build.compiles")
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [*command, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True, timeout=timeout_s,
-        )
+        with profiling.span("build.compile"):
+            proc = subprocess.run(
+                [*command, "-o", str(tmp), *map(str, sources)],
+                capture_output=True, text=True, timeout=timeout_s,
+            )
     except (OSError, subprocess.TimeoutExpired) as e:
         tmp.unlink(missing_ok=True)
         raise BuildError(f"building {name} failed: {e}") from e

@@ -1,28 +1,199 @@
-"""Tracing and per-stage timing: the counterpart of ``rag_uq_tpu/utils/profiling.py``.
+"""The port's tracer: named spans and counters at the program's batch boundaries.
 
-- ``StageTimer`` fills the per-component latency fields of
-  ``EfficiencyMetrics`` (router / retrieval / generation) from host clocks,
-  optionally after a device barrier;
-- ``trace`` records a ``torch.profiler`` trace of a region (CPU and, on a
-  card, CUDA activity) and writes it as a Chrome trace into ``log_dir``;
-- ``annotate`` names a sub-region of a trace
-  (``torch.profiler.record_function``);
-- ``device_sync`` waits for the device work queued before it.
+Turn it on, run, take the records::
+
+    from rag_uq_tpu_torch.utils import profiling
+
+    profiling.enable()
+    retriever.hybrid_search_batch(queries, sparse_mode="scatter")
+    rec = profiling.take()        # {"spans": [...], "counters": {...}, "dropped": n}
+    profiling.disable()
+    searches = {s.id for s in rec["spans"] if s.name == "search"}
+    hash_ms = [s.host_ms for s in rec["spans"] if s.name == "embed.hash" and s.root in searches]
+    fused_ms = [s.cuda_ms for s in rec["spans"] if s.name == "fused"]   # None off the card
+
+Off (the default) a span is one check of a module global that returns a
+shared no-op context, and a counter one check and a return: no clock, no
+CUDA event, no ``record_function``, no allocation. Spans and counters sit
+only at batch boundaries, never inside a loop over queries or features.
+
+On, each span records its name, ``perf_counter_ns`` start and end, its own
+id, its parent's id (None at the top) and its root's id, from a stack kept
+per thread, so spans of concurrent callers keep their own trees; and ``n``,
+the items the span handles where the caller gives it (the batch size of a
+``search``). With ``cuda=True`` a span also records a pair of CUDA events on
+the current stream; their time is read in ``take``, never while the program
+runs, and no span synchronizes the device. Each span also opens
+``torch.profiler.record_function(name)``, so a ``torch.profiler`` trace
+carries the program's spans on its own clock, where they can name the
+device's idle gaps.
+
+Records are kept in memory up to ``CAP`` spans; spans past it are counted
+in ``dropped``. ``take`` returns what was kept and clears it.
+
+Spans (where; clock):
+
+- ``search`` (``HybridRetriever.hybrid_search_batch``, one a call, ``n`` = B)
+  with ``search.state`` (``_fused_state``) and ``search.readback`` (the
+  results' copy to the host, which waits for the device);
+- ``embed`` (``DenseIndex.embed_queries``) with ``embed.hash``
+  (``NgramHashEmbedder._hash_batch``), ``embed.bag`` (``encode_device``;
+  also CUDA), ``embed.readback`` (``encode``'s copy to the host) and
+  ``embed.upload`` (normalize, copy to the device, pad);
+- ``terms`` (``retrieval/fused.py::encode_for_fused``) with
+  ``terms.tokenize`` (``BM25Index.encode_queries``) and ``terms.compact``
+  (the high tier's active-row compaction and its copies);
+- ``fused`` (the fused query) with ``fused.dense_pool``, ``fused.bm25_pool``
+  and ``fused.tail`` (the union, the fusion and the top-k); host and CUDA;
+- set-up: ``bm25.build`` (``BM25Index.add_documents``), ``bm25.sync`` (a
+  rebuild of its device layout), ``dense.add`` (``DenseIndex.add_documents``
+  and ``add_precomputed``), ``build.compile`` (a native library compiled).
+
+Counters: ``bm25.high_rows_active`` and ``bm25.high_rows_padded`` (a scatter
+batch's distinct high-tier rows and the rows its product runs over);
+``bm25.syncs``, ``fused_state.rebuilds``, ``build.compiles`` and
+``build.cache_hits`` (what was built again).
+
+``device_sync`` is a barrier on the device of a tensor.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
+import itertools
+import threading
 import time
 from collections import defaultdict
-from pathlib import Path
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
-import numpy as np
 import torch
 
-logger = logging.getLogger(__name__)
+CAP = 1 << 16
+
+_NOOP = contextlib.nullcontext()
+_on = False
+_lock = threading.Lock()
+_ids = itertools.count(1)
+_local = threading.local()
+_kept: List[tuple] = []
+_dropped = 0
+_counters: Dict[str, int] = defaultdict(int)
+
+
+class Span(NamedTuple):
+    """One finished span. ``root`` is the id of the outermost span open in
+    its thread when it started (its own id at the top); ``cuda_ms`` is None
+    for a span without CUDA events."""
+
+    id: int
+    parent: Optional[int]
+    root: int
+    name: str
+    start_ns: int
+    end_ns: int
+    n: Optional[int]
+    cuda_ms: Optional[float]
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-6
+
+
+class _Open:
+    __slots__ = ("name", "n", "cuda", "id", "parent", "root", "label", "events", "t0")
+
+    def __init__(self, name: str, cuda: bool, n: Optional[int]):
+        self.name, self.cuda, self.n = name, cuda, n
+
+    def __enter__(self):
+        stack = _stack()
+        self.id = next(_ids)
+        if stack:
+            self.parent, self.root = stack[-1].id, stack[-1].root
+        else:
+            self.parent, self.root = None, self.id
+        stack.append(self)
+        self.label = torch.profiler.record_function(self.name)
+        self.label.__enter__()
+        self.events = None
+        if self.cuda:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record()
+        self.label.__exit__(None, None, None)
+        _stack().pop()
+        _keep((self.id, self.parent, self.root, self.name, self.t0, t1, self.n, self.events))
+        return False
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _keep(record: tuple) -> None:
+    global _dropped
+    with _lock:
+        if len(_kept) < CAP:
+            _kept.append(record)
+        else:
+            _dropped += 1
+
+
+def enable() -> None:
+    """Record spans and counters from here on."""
+    global _on
+    _on = True
+
+
+def disable() -> None:
+    """Stop recording; what was recorded stays until ``take``."""
+    global _on
+    _on = False
+
+
+def span(name: str, cuda: bool = False, n: Optional[int] = None):
+    """A context manager recording ``name`` while the tracer is on (CUDA
+    events too with ``cuda``); the shared no-op context while it is off."""
+    if not _on:
+        return _NOOP
+    return _Open(name, cuda, n)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while the tracer is on."""
+    if not _on:
+        return
+    with _lock:
+        _counters[name] += int(n)
+
+
+def take() -> Dict:
+    """The spans finished and the counters counted since the last ``take``,
+    and the spans dropped past the cap; clears them. Reads the CUDA events,
+    waiting for each span's end event."""
+    global _kept, _dropped
+    with _lock:
+        kept, dropped, counters = _kept, _dropped, dict(_counters)
+        _kept, _dropped = [], 0
+        _counters.clear()
+    spans = []
+    for sid, parent, root, name, t0, t1, n, events in kept:
+        cuda_ms = None
+        if events is not None:
+            events[1].synchronize()
+            cuda_ms = events[0].elapsed_time(events[1])
+        spans.append(Span(sid, parent, root, name, t0, t1, n, cuda_ms))
+    return {"spans": spans, "counters": counters, "dropped": dropped}
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:
@@ -49,74 +220,3 @@ def device_sync(x=None) -> None:
         return
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-
-
-class StageTimer:
-    """Accumulates per-stage wall-clock seconds across queries.
-
-    Usage:
-        timer = StageTimer()
-        with timer.stage("retrieval"):
-            ...
-        metrics = evaluate_efficiency(timer.totals("total"),
-                                      retrieval_times=timer.totals("retrieval"))
-    """
-
-    def __init__(self, sync: bool = False):
-        self.sync = sync
-        self._stages: Dict[str, List[float]] = defaultdict(list)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, result=None) -> Iterator[None]:
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            if self.sync:
-                device_sync(result)
-            self._stages[name].append(time.time() - t0)
-
-    def record(self, name: str, seconds: float) -> None:
-        self._stages[name].append(seconds)
-
-    def totals(self, name: str) -> List[float]:
-        return list(self._stages.get(name, []))
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        out = {}
-        for name, vals in self._stages.items():
-            arr = np.asarray(vals)
-            out[name] = {
-                "count": int(arr.size),
-                "total_s": float(arr.sum()),
-                "mean_ms": float(arr.mean() * 1000),
-                "p95_ms": float(np.percentile(arr, 95) * 1000),
-            }
-        return out
-
-
-@contextlib.contextmanager
-def trace(log_dir: Optional[str] = None) -> Iterator[None]:
-    """Record a ``torch.profiler`` trace around a region and write it to
-    ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing). No
-    trace without ``log_dir``. CUDA activity is recorded where a card is
-    present."""
-    if log_dir is None:
-        yield
-        return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    path = Path(log_dir) / "trace.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    logger.info("Saved profiler trace to %s", path)
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named sub-region inside a trace."""
-    with torch.profiler.record_function(name):
-        yield
