@@ -4,13 +4,13 @@ from __future__ import annotations
 
 import hashlib
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from rag_uq_tpu_torch.core.device import DeviceLike, resolve_device
-from rag_uq_tpu_torch.text.tokenize import fnv1a_64, tokenize
+from rag_uq_tpu_torch.text.tokenize import hash_texts
 from rag_uq_tpu_torch.utils import profiling
 
 
@@ -89,26 +89,11 @@ class NgramHashEmbedder:
             raise ValueError(f"table shape {tuple(table.shape)} != {(buckets, dim)}")
         self.table = table.to(device=self.device, dtype=torch.bfloat16)
 
-    def _features(self, text: str) -> List[int]:
-        toks = tokenize(text)
-        feats = [fnv1a_64(t) % self.buckets for t in toks]
-        if self.use_bigrams:
-            feats += [
-                fnv1a_64(a + "\x1f" + b) % self.buckets
-                for a, b in zip(toks, toks[1:])
-            ]
-        return feats[: self.max_len]
-
     def _hash_batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """Feature ids [B, max_len] int32, zero-padded, and lengths [B] int32
+        (``text/tokenize.py::hash_texts`` with this embedder's bigrams)."""
         with profiling.span("embed.hash"):
-            ids = np.zeros((len(texts), self.max_len), dtype=np.int32)
-            lengths = np.zeros((len(texts),), dtype=np.int32)
-            for i, text in enumerate(texts):
-                feats = self._features(text)
-                lengths[i] = len(feats)
-                if feats:
-                    ids[i, : len(feats)] = np.asarray(feats, dtype=np.int32)
-            return ids, lengths
+            return hash_texts(texts, self.buckets, self.max_len, self.use_bigrams)
 
     def encode_device(self, ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """Embeddings [B, dim] f32 on the device for pre-hashed features."""

@@ -1,4 +1,5 @@
-"""ctypes bindings for the native tokenizer/postings builder.
+"""ctypes bindings for the native tokenizer/postings builder and the
+hashing embedder's feature pass (``hash_features``).
 
 A copy of ``rag_uq_tpu/native/binding.py`` whose library is built with
 ``g++`` at first use into the port's build directory (``utils/build.py``),
@@ -81,6 +82,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         c.c_void_p, c.c_char_p, c.POINTER(c.c_int64), c.c_int64,
         c.POINTER(c.c_int32), c.c_int32,
     ]
+    lib.rag_hash_features.argtypes = [
+        c.c_char_p, c.POINTER(c.c_int64), c.c_int64, c.c_int64, c.c_int32,
+        c.c_int32, c.POINTER(c.c_int32), c.POINTER(c.c_int32),
+    ]
+    lib.rag_hash_features.restype = None
 
 
 def is_available() -> bool:
@@ -171,3 +177,27 @@ class NativeTokenizer:
             self._ctx, buf, _i64p(offsets), len(queries), _i32p(out), max_terms
         )
         return out
+
+
+def hash_features(
+    texts: Sequence[str], buckets: int, max_len: int, use_bigrams: bool
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The hashed features of ``texts`` in C++: ids ``[B, max_len]`` int32,
+    zero-padded, and lengths ``[B]`` int32, equal to those of
+    ``text/tokenize.py::text_features``, the Python twin, on any text.
+
+    Raises RuntimeError when the library is unavailable (``is_available()``).
+    """
+    lib = _get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if not 0 < buckets <= 1 << 31 or not 0 <= max_len < 1 << 31:
+        raise ValueError(f"buckets {buckets} or max_len {max_len} out of range")
+    buf, offsets = _pack(texts)
+    ids = np.empty((len(texts), max_len), dtype=np.int32)
+    lengths = np.empty((len(texts),), dtype=np.int32)
+    lib.rag_hash_features(
+        buf, _i64p(offsets), len(texts), buckets, max_len, int(use_bigrams),
+        _i32p(ids), _i32p(lengths),
+    )
+    return ids, lengths

@@ -22,8 +22,14 @@
 //   - term ids are assigned in first-appearance order, mirroring the Python
 //     Vocab, so both sides stay in lockstep.
 //
+// rag_hash_features is the hashing feature pass of the encoder and the
+// hashing embedder (text/tokenize.py::hash_texts; its Python twin is
+// text_features): it splits where Python's str.split() splits, on every
+// Unicode whitespace code point, so its ids equal the twin's on any text.
+//
 // Build: g++ -O3 -shared -fPIC -std=c++17 rag_native.cpp -o librag_native.so
 
+#include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <deque>
@@ -74,6 +80,39 @@ inline std::string_view trim_token(const char* tok, const char* end) {
   while (end > tok && is_edge_strip(static_cast<unsigned char>(*(end - 1))))
     --end;
   return std::string_view(tok, static_cast<size_t>(end - tok));
+}
+
+// Length in bytes of the whitespace code point at p (what Python's
+// str.isspace() accepts, read from its UTF-8 bytes), or 0 if p starts none:
+// U+0009-000D, U+001C-001F, U+0020, U+0085, U+00A0, U+1680, U+2000-200A,
+// U+2028, U+2029, U+202F, U+205F and U+3000. Continuation bytes (0x80-0xBF)
+// match no lead byte here, so a scan may step through a token byte by byte.
+inline int unicode_space_len(const unsigned char* p, const unsigned char* end) {
+  const unsigned char c = p[0];
+  if (c < 0x80)
+    return (c == ' ' || (c >= 0x09 && c <= 0x0d) || (c >= 0x1c && c <= 0x1f))
+               ? 1 : 0;
+  const ptrdiff_t left = end - p;
+  if (c == 0xc2) return (left >= 2 && (p[1] == 0x85 || p[1] == 0xa0)) ? 2 : 0;
+  if (left < 3) return 0;
+  if (c == 0xe1) return (p[1] == 0x9a && p[2] == 0x80) ? 3 : 0;
+  if (c == 0xe2) {
+    if (p[1] == 0x80)
+      return ((p[2] >= 0x80 && p[2] <= 0x8a) || p[2] == 0xa8 || p[2] == 0xa9 ||
+              p[2] == 0xaf) ? 3 : 0;
+    return (p[1] == 0x81 && p[2] == 0x9f) ? 3 : 0;
+  }
+  if (c == 0xe3) return (p[1] == 0x80 && p[2] == 0x80) ? 3 : 0;
+  return 0;
+}
+
+constexpr uint64_t kFnvOffset = 0xcbf29ce484222325ULL;
+constexpr uint64_t kFnvPrime = 0x100000001b3ULL;
+
+// FNV-1a 64 of the bytes of t, continued from the state h.
+inline uint64_t fnv1a(uint64_t h, std::string_view t) {
+  for (unsigned char c : t) h = (h ^ c) * kFnvPrime;
+  return h;
 }
 
 }  // namespace
@@ -202,6 +241,53 @@ void rag_encode_queries(void* h, const char* buf, const int64_t* offsets,
         ++k;
       }
     }
+  }
+}
+
+// The hashed features of n lowercased texts (buf, offsets as in
+// rag_add_documents): the FNV-1a 64 hash of each token modulo buckets, in
+// token order, then with use_bigrams that of each adjacent pair a + "\x1f" +
+// b, the list cut to max_len. Writes ids (row-major [n, max_len], zero past
+// each row's length) and lengths ([n]). Reads no context, so concurrent
+// calls are safe. The result depends only on the first max_len tokens.
+void rag_hash_features(const char* buf, const int64_t* offsets, int64_t n,
+                       int64_t buckets, int32_t max_len, int32_t use_bigrams,
+                       int32_t* ids, int32_t* lengths) {
+  const uint64_t mod = static_cast<uint64_t>(buckets);
+  const size_t cap = static_cast<size_t>(max_len);
+  std::vector<std::string_view> toks;
+  std::vector<uint64_t> states;
+  toks.reserve(cap);
+  states.reserve(cap);
+  for (int64_t d = 0; d < n; ++d) {
+    const auto* p = reinterpret_cast<const unsigned char*>(buf + offsets[d]);
+    const auto* end = reinterpret_cast<const unsigned char*>(buf + offsets[d + 1]);
+    toks.clear();
+    states.clear();
+    while (p < end && toks.size() < cap) {
+      int s;
+      while (p < end && (s = unicode_space_len(p, end)) > 0) p += s;
+      const auto* tok = p;
+      while (p < end && unicode_space_len(p, end) == 0) ++p;
+      std::string_view t = trim_token(reinterpret_cast<const char*>(tok),
+                                      reinterpret_cast<const char*>(p));
+      if (!t.empty()) toks.push_back(t);
+    }
+    int32_t* row = ids + d * static_cast<int64_t>(max_len);
+    size_t k = 0;
+    for (std::string_view t : toks) {
+      const uint64_t h = fnv1a(kFnvOffset, t);
+      states.push_back(h);
+      row[k++] = static_cast<int32_t>(h % mod);
+    }
+    if (use_bigrams) {
+      for (size_t i = 0; i + 1 < toks.size() && k < cap; ++i) {
+        const uint64_t h = fnv1a((states[i] ^ 0x1fu) * kFnvPrime, toks[i + 1]);
+        row[k++] = static_cast<int32_t>(h % mod);
+      }
+    }
+    lengths[d] = static_cast<int32_t>(k);
+    std::memset(row + k, 0, (cap - k) * sizeof(int32_t));
   }
 }
 

@@ -14,7 +14,10 @@ ASCII punctuation stripped from both EDGES (never the interior — "it's",
 C++ tokenizer (native/rag_native.cpp) implements byte-identical semantics.
 
 Also here: a stable 64-bit token hash used by the hashing embedder
-(host-side; the device only ever sees integer ids).
+(host-side; the device only ever sees integer ids), and ``hash_texts``, the
+one hashing path of the encoder and the hashing embedder: in the native
+library when it loaded (``native/binding.py::hash_features``), else in
+Python, its fallback and twin, with the same ids.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from __future__ import annotations
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
+
+from rag_uq_tpu_torch.native import binding as native
+from rag_uq_tpu_torch.utils import profiling
 
 _FNV_OFFSET = 0xCBF29CE484222325
 _FNV_PRIME = 0x100000001B3
@@ -67,23 +73,41 @@ def hash_tokens(tokens: Iterable[str], buckets: int) -> np.ndarray:
     return np.asarray([fnv1a_64(t) % buckets for t in tokens], dtype=np.int32)
 
 
-def hash_texts(
-    texts: Iterable[str], buckets: int, max_len: int
-) -> "tuple[np.ndarray, np.ndarray]":
-    """Batch-hash texts into padded [B, max_len] ids + [B] lengths.
+def text_features(text: str, buckets: int, max_len: int, use_bigrams: bool) -> List[int]:
+    """One text's hashed features in Python: each token's FNV-1a 64 hash
+    modulo ``buckets``, then with ``use_bigrams`` each adjacent pair's
+    (``a + "\\x1f" + b``), the list cut to ``max_len``. Only the first
+    ``max_len`` tokens can reach the cut list."""
+    toks = tokenize(text)[:max_len]
+    feats = [fnv1a_64(t) % buckets for t in toks]
+    if use_bigrams:
+        feats += [fnv1a_64(a + "\x1f" + b) % buckets for a, b in zip(toks, toks[1:])]
+    return feats[:max_len]
 
-    Tokens beyond max_len are folded in by wrapping (so very long documents
-    still influence the embedding rather than being truncated outright is NOT
-    done here; we truncate, matching typical encoder max-length behavior).
+
+def hash_texts(
+    texts: Iterable[str], buckets: int, max_len: int, use_bigrams: bool = False
+) -> "tuple[np.ndarray, np.ndarray]":
+    """Batch-hash texts into padded [B, max_len] int32 ids + [B] int32 lengths.
+
+    Unigrams alone are the encoder's features; with bigrams, the hashing
+    embedder's (``NgramHashEmbedder._hash_batch``). Long texts are
+    truncated, matching typical encoder max-length behavior. The native
+    library computes them when it loaded; else ``text_features``, its
+    twin, with the same ids.
     """
     texts = list(texts)
+    if native.is_available():
+        profiling.count("embed.hash_native", len(texts))
+        return native.hash_features(texts, buckets, max_len, use_bigrams)
+    profiling.count("embed.hash_python", len(texts))
     ids = np.zeros((len(texts), max_len), dtype=np.int32)
     lengths = np.zeros((len(texts),), dtype=np.int32)
     for i, text in enumerate(texts):
-        toks = tokenize(text)[:max_len]
-        lengths[i] = len(toks)
-        if toks:
-            ids[i, : len(toks)] = hash_tokens(toks, buckets)
+        feats = text_features(text, buckets, max_len, use_bigrams)
+        lengths[i] = len(feats)
+        if feats:
+            ids[i, : len(feats)] = np.asarray(feats, dtype=np.int32)
     return ids, lengths
 
 

@@ -51,6 +51,10 @@ Spans (where; clock):
 
 Counters: ``bm25.high_rows_active`` and ``bm25.high_rows_padded`` (a scatter
 batch's distinct high-tier rows and the rows its product runs over);
+``embed.hash_native`` and ``embed.hash_python`` (texts whose hashed features
+the native library computed, and texts the Python twin hashed because the
+library did not load, in ``text/tokenize.py::hash_texts``, which
+``NgramHashEmbedder._hash_batch`` and the encoder call);
 ``bm25.syncs``, ``fused_state.rebuilds``, ``build.compiles`` and
 ``build.cache_hits`` (what was built again).
 

@@ -6,7 +6,8 @@ root ids, counters add up, spans past the cap are counted, each span opens
 a ``torch.profiler`` range of its name, and a scatter-mode
 ``hybrid_search_batch`` yields the span tree the tracer's docstring lists,
 with the high tier's row counters equal to a recount of
-``encode_for_fused``'s own outputs.
+``encode_for_fused``'s own outputs and every query hashed by the native
+library (by the Python twin once the library is made unavailable).
 """
 
 import os
@@ -25,6 +26,7 @@ os.environ.setdefault(
 from rag_uq_tpu_torch.core.config import BM25Config, DenseIndexConfig  # noqa: E402
 from rag_uq_tpu_torch.core.types import Document  # noqa: E402
 from rag_uq_tpu_torch.embed.hash_embed import NgramHashEmbedder  # noqa: E402
+from rag_uq_tpu_torch.native import binding  # noqa: E402
 from rag_uq_tpu_torch.retrieval import fused as fused_mod  # noqa: E402
 from rag_uq_tpu_torch.retrieval.hybrid import HybridRetriever  # noqa: E402
 from rag_uq_tpu_torch.utils import build, profiling  # noqa: E402
@@ -214,6 +216,25 @@ def test_a_scatter_search_yields_the_span_tree_and_the_high_tier_counts(corpus, 
     assert rec["counters"]["bm25.high_rows_active"] == active
     assert rec["counters"]["bm25.high_rows_padded"] == padded
     assert rec["dropped"] == 0
+
+
+@pytest.mark.parametrize("library", ["native", "unavailable"])
+def test_a_search_counts_the_queries_each_hashing_path_hashed(corpus, tracer, monkeypatch,
+                                                             library):
+    docs, queries = corpus
+    r = _retriever(docs)
+    assert binding.is_available()
+    if library == "unavailable":
+        monkeypatch.setattr(binding, "_get_lib", lambda: None)
+    tracer.take()
+    _search(r, queries)
+    rec = tracer.take()
+    hashed, other = (("embed.hash_native", "embed.hash_python") if library == "native"
+                     else ("embed.hash_python", "embed.hash_native"))
+    assert rec["counters"][hashed] == len(queries) and other not in rec["counters"]
+    by_id = {s.id: s for s in rec["spans"]}
+    (hash_span,) = [s for s in rec["spans"] if s.name == "embed.hash"]
+    assert by_id[hash_span.parent].name == "embed"
 
 
 def test_twotier_search_has_no_compaction_and_counts_no_high_rows(corpus, tracer):
