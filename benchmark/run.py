@@ -2,21 +2,38 @@
 
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-from the root of a checkout. The cell, its configuration, its traffic mix
-and its metrics are found by name: the cell in ``BENCHMARK.json``, the
-configuration in the file the entry names, the mix in
-``benchmark/traffic/<traffic>.json``, and each per-layer metric's reader in
-``benchmark/metrics/<metric>.py``. Set-up (imports, the deployment, the
-kernels' builds, the warm-up of the cell's shapes) is timed as ``setup_s``;
-then the window runs the traffic for ``--seconds``. With ``--trace 1`` the
-harness wraps calls into the port with spans and CUDA events, profiles a
-sub-window, and prints the per-layer metrics instead of the end-to-end ones.
+from the root of a checkout. Everything that belongs to one cell is found by
+name, so that a cell of a new kind comes from new files alone:
 
-Afterwards the program's state is freed and the plain reference
-(``benchmark/reference``) judges a sample of the window's answers drawn from
-the seed. Each compared number is printed beside its limit, as the last
-lines on standard error and under ``checks`` at the end of the result line,
-the last line on standard output. The run fails with no result line
+- the cell in ``BENCHMARK.json``, and its configuration in the file the
+  entry names;
+- the configuration's kind in ``benchmark/kinds/<kind>.py``, which exports
+  ``make_inputs(cfg, seed, device)`` (what both sides are handed),
+  ``build(cfg, inputs, seed, device)`` (the port's system under test) and
+  ``judge(cfg, inputs, judged, device, control)``, which returns (the
+  compared numbers, each with its limit; the other numbers to print);
+- the mix in ``benchmark/traffic/<traffic>.json``, and its mode in
+  ``benchmark/modes/<mode>.py``, whose ``Mode(dep, cfg, traffic, seed,
+  device)`` has ``instrument``, ``warm``, ``window``, ``layer_context`` and
+  ``release``, as ``traffic_modes.Batch`` has them;
+- each per-layer metric's reader in ``benchmark/metrics/<metric>.py``.
+
+Set-up (imports, the deployment, the kernels' builds, the warm-up of the
+cell's shapes) is timed as ``setup_s``; then the window runs the traffic for
+``--seconds``. With ``--trace 1`` the mode wraps calls into the port with
+spans and CUDA events and may profile a sub-window, and the per-layer
+metrics are printed instead of the end-to-end ones. A mix that sets
+``"program_trace": true`` also has the port's own tracer
+(``rag_uq_tpu_torch/utils/profiling.py``) on in its traced runs, from the
+build to the window's end: its records of set-up and of the window reach
+the readers as ``ctx["program"]["setup"]`` and ``ctx["program"]["window"]``.
+Untraced runs never turn it on.
+
+Afterwards the program's state is freed and the kind's judge, with the plain
+reference (``benchmark/reference``), judges a sample of the window's answers
+drawn from the seed. Each compared number is printed beside its limit, as
+the last lines on standard error and under ``checks`` at the end of the
+result line, the last line on standard output. The run fails with no result line
 without a CUDA card, when the port cannot be imported, or when JAX or the
 JAX package was loaded: looked for once the window has closed, and again
 once the judge and the readers have run, just before the result line.
@@ -33,13 +50,16 @@ import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+from contextlib import contextmanager  # noqa: E402
 from pathlib import Path  # noqa: E402
 from typing import Dict, List, Optional  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "rag_uq_tpu")
+PART_NAME = re.compile(r"[A-Za-z0-9_]+")
 
 
 class RunError(RuntimeError):
@@ -70,12 +90,52 @@ def load_spec(root: Path, workload: str) -> Dict:
             "bench": bench}
 
 
-def load_reader(bench: Path, name: str):
-    path = bench / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name}", path)
+def load_file(path: Path, module_name: str):
+    """The module in ``path``, executed anew under ``module_name``."""
+    mod_spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(mod_spec)
+    # Registered while it runs, as an import would: a dataclass or a
+    # pickled object of the module looks itself up there.
+    sys.modules[module_name] = module
     mod_spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def load_reader(bench: Path, name: str):
+    return load_file(bench / "metrics" / f"{name}.py", f"benchmark_metric_{name}").read
+
+
+def load_part(bench: Path, folder: str, name: str):
+    """The module ``benchmark/<folder>/<name>.py``: a kind or a mode."""
+    path = bench / folder / f"{name}.py"
+    if not (PART_NAME.fullmatch(str(name)) and path.is_file()):
+        raise RunError(f"no {folder[:-1]} {name!r}: looked for {path}")
+    return load_file(path, f"benchmark_{folder}_{name}")
+
+
+def load_kind(bench: Path, name: str):
+    return load_part(bench, "kinds", name)
+
+
+def load_mode(bench: Path, name: str):
+    return load_part(bench, "modes", name).Mode
+
+
+@contextmanager
+def program_tracer(on: bool):
+    """The port's tracer, on inside the block where ``on``; yields a
+    ``take`` that gives its records since the last one (None where off)."""
+    if not on:
+        yield lambda: None
+        return
+    from rag_uq_tpu_torch.utils import profiling
+
+    profiling.take()  # what an earlier run in this process left
+    profiling.enable()
+    try:
+        yield profiling.take
+    finally:
+        profiling.disable()
 
 
 def forbidden_modules() -> None:
@@ -105,33 +165,40 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         import rag_uq_tpu_torch  # noqa: F401
     except ImportError as e:
         raise RunError(f"the port cannot be imported: {e}") from e
-    from benchmark import check, deploy, trace as tr
-    from benchmark.traffic_modes import MODES
+    from benchmark import trace as tr
 
+    kind = load_kind(s["bench"], cfg["kind"])
+    mode_class = load_mode(s["bench"], traffic["mode"])
+    program_trace = trace and traffic.get("program_trace") is True
     t_inputs = time.perf_counter()
-    inputs = deploy.make_inputs(cfg, seed, device)
-    log(f"inputs and the router's bias {time.perf_counter() - t_inputs:.3f} s")
-    dep = deploy.build(cfg, inputs, seed, device)
-    mode = MODES[traffic["mode"]](dep, cfg, traffic, seed, device)
-    rec = tr.Recorder()
-    mode.instrument(rec, trace)
-    mode.warm()
-    if trace and device == "cuda":
-        tr.warm_profiler()
-    if device == "cuda":
-        torch.cuda.synchronize()
-    # What set-up built stays: collections in the window skip it.
-    gc.collect()
-    gc.freeze()
-    setup_s = time.perf_counter() - t_origin
-    log(f"set-up {setup_s:.3f} s")
-    rec.on = trace
-    window = mode.window(seconds, rec, trace)
-    rec.on = False
+    inputs = kind.make_inputs(cfg, seed, device)
+    log(f"inputs {time.perf_counter() - t_inputs:.3f} s")
+    with program_tracer(program_trace) as take:
+        dep = kind.build(cfg, inputs, seed, device)
+        mode = mode_class(dep, cfg, traffic, seed, device)
+        rec = tr.Recorder()
+        mode.instrument(rec, trace)
+        mode.warm()
+        if trace and device == "cuda":
+            tr.warm_profiler()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        # What set-up built stays: collections in the window skip it.
+        gc.collect()
+        gc.freeze()
+        setup_s = time.perf_counter() - t_origin
+        log(f"set-up {setup_s:.3f} s")
+        program = {"setup": take()}
+        rec.on = trace
+        window = mode.window(seconds, rec, trace)
+        rec.on = False
+        program["window"] = take()
     memory = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     forbidden_modules()
     e2e = dict(window["e2e"], setup_s=setup_s)
     layer_ctx = mode.layer_context(rec, window)
+    if program_trace:
+        layer_ctx["program"] = program
     rec.restore()
     # The program's state goes before the reference runs.
     judged = mode.release()
@@ -140,7 +207,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    checks, extra = check.run(cfg, inputs, judged, device, control)
+    checks, extra = kind.judge(cfg, inputs, judged, device, control)
     metrics = {}
     if trace:
         for m in s["per_layer"]:

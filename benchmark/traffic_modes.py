@@ -1,9 +1,10 @@
-"""The kinds of traffic a mix file can name in its ``mode``.
+"""The traffic of the ``synthetic_hybrid`` kind's mixes. A mix names its
+mode in ``mode``, and ``benchmark/modes/<mode>.py`` binds the class here:
 
-- ``batch``: ``HybridRetriever.hybrid_search_batch`` on ``batches`` distinct
-  batches of ``batch`` queries, in turn, back to back, until the window's
-  seconds have passed. The rate counts every query of every call over the
-  whole time, the last call's overrun included.
+- ``batch`` (``Batch``): ``HybridRetriever.hybrid_search_batch`` on
+  ``batches`` distinct batches of ``batch`` queries, in turn, back to back,
+  until the window's seconds have passed. The rate counts every query of
+  every call over the whole time, the last call's overrun included.
 
 Queries come from the configuration's ``queries`` section: spans of source
 passages (``passage_span``). A mode warms the shapes its traffic uses and
@@ -179,6 +180,3 @@ class Batch:
         self.out = None
         return {"queries": queries, "pos": np.concatenate(pos), "vals": np.concatenate(vals),
                 "unanswered": 0}
-
-
-MODES = {"batch": Batch}
