@@ -4,12 +4,15 @@
 - RouterModule: the retrieval-gating MLP (rag_uq_tpu_torch.router.model)
 - EncoderModel: the transformer text encoder (rag_uq_tpu_torch.embed.encoder)
 - DecoderModel: the byte-level generation decoder (rag_uq_tpu_torch.llm.tiny_lm)
+- DeepseekV2Model: DeepSeek-V2's latent-attention, expert-layer decoder
+  (rag_uq_tpu_torch.llm.deepseek_v2; the port's own, with no JAX counterpart)
 
 Each ships with its stateful convenience wrapper (RetrievalRouter,
-TransformerEmbedder, TinyLM) in its home module.
+TransformerEmbedder, TinyLM, DeepseekV2LM) in its home module.
 """
 
 from rag_uq_tpu_torch.embed.encoder import EncoderConfig, EncoderModel
+from rag_uq_tpu_torch.llm.deepseek_v2 import DeepseekV2Config, DeepseekV2Model
 from rag_uq_tpu_torch.llm.tiny_lm import DecoderModel, TinyLMConfig
 from rag_uq_tpu_torch.router.model import RouterModule
 
@@ -19,4 +22,6 @@ __all__ = [
     "EncoderConfig",
     "DecoderModel",
     "TinyLMConfig",
+    "DeepseekV2Model",
+    "DeepseekV2Config",
 ]

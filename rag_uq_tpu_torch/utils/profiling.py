@@ -29,7 +29,8 @@ carries the program's spans on its own clock, where they can name the
 device's idle gaps.
 
 Records are kept in memory up to ``CAP`` spans; spans past it are counted
-in ``dropped``. ``take`` returns what was kept and clears it.
+in ``dropped``. ``take`` returns what was kept and clears it; ``counters``
+reads the counters so far without clearing them.
 
 Spans (where; clock):
 
@@ -45,6 +46,16 @@ Spans (where; clock):
   (the high tier's active-row compaction and its copies);
 - ``fused`` (the fused query) with ``fused.dense_pool``, ``fused.bm25_pool``
   and ``fused.tail`` (the union, the fusion and the top-k); host and CUDA;
+- ``generate`` (``llm/deepseek_v2.py::DeepseekV2LM.generate_batch_scored``,
+  one a call, ``n`` = rows) with ``generate.encode`` (tokenizing the
+  distinct prompts, the slots, the uploads), ``generate.prefill`` (each
+  distinct prompt once; host and CUDA, ``n`` = prompt tokens),
+  ``generate.fork`` (the slots' caches and first samples; host and CUDA),
+  ``generate.decode`` (the decode loop; host and CUDA, ``n`` = steps) and
+  ``generate.readback`` (the samples' copy to the host and their texts);
+- per layer, ``mla`` (the attention block) and ``moe`` (the expert layer;
+  ``mlp`` for a dense one): ``device_range``s, which name the device
+  trace's kernels only while a ``torch.profiler`` records and keep no span;
 - set-up: ``bm25.build`` (``BM25Index.add_documents``), ``bm25.sync`` (a
   rebuild of its device layout), ``dense.add`` (``DenseIndex.add_documents``
   and ``add_precomputed``), ``build.compile`` (a native library compiled).
@@ -56,9 +67,17 @@ the native library computed, and texts the Python twin hashed because the
 library did not load, in ``text/tokenize.py::hash_texts``, which
 ``NgramHashEmbedder._hash_batch`` and the encoder call);
 ``bm25.syncs``, ``fused_state.rebuilds``, ``build.compiles`` and
-``build.cache_hits`` (what was built again).
+``build.cache_hits`` (what was built again); for the generator, a call's
+``gen.rows``, ``gen.prompts`` (distinct prompts prefilled),
+``gen.prefill_tokens``, ``gen.prefill_pairs`` (causal query-key pairs of
+the prefill, sum of L (L + 1) / 2), ``gen.decode_steps``,
+``gen.decode_positions`` (steps times rows), ``gen.cache_positions`` (the
+cached positions each row's decode steps attend over, summed), ``gen.tokens``
+(tokens generated, EOS included) and ``moe.pairs`` (token-expert pairs an
+expert layer routed).
 
-``device_sync`` is a barrier on the device of a tensor.
+A span's ``n`` may be set inside its block (``with span(...) as s:``,
+``s`` None while off). ``device_sync`` is a barrier on the device of a tensor.
 """
 
 from __future__ import annotations
@@ -173,12 +192,27 @@ def span(name: str, cuda: bool = False, n: Optional[int] = None):
     return _Open(name, cuda, n)
 
 
+def device_range(name: str):
+    """A ``torch.profiler`` range of ``name`` while the tracer is on and a
+    profiler is recording, else the shared no-op context: no span is kept,
+    so ranges opened once a layer a step cannot fill the cap."""
+    if not _on or not torch.autograd._profiler_enabled():
+        return _NOOP
+    return torch.profiler.record_function(name)
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while the tracer is on."""
     if not _on:
         return
     with _lock:
         _counters[name] += int(n)
+
+
+def counters() -> Dict[str, int]:
+    """The counters counted since the last ``take``, left as they are."""
+    with _lock:
+        return dict(_counters)
 
 
 def take() -> Dict:
