@@ -6,13 +6,14 @@ Usage, from the root of a checkout:  python3 chip_smoke.py [--seed N]
 Phases, each printing one line "phase <name> ok <seconds>":
 
   device   a CUDA card is required (the script fails without one);
-  build    both CUDA libraries (the heap kernel csrc/cosine_topk.cu and the
-           large-k kernels csrc/cosine_topk_large.cu, one nvcc each, started
-           together) and the native tokenizer (g++), from the sources in the
-           checkout, into build/rag_uq_tpu_torch/; prints the compiler's
-           registers, spills and shared memory, and the counts of HGMMA
-           (wgmma) and UTMALDG (TMA load) instructions in each library's
-           SASS, and fails if either is zero in either;
+  build    the three CUDA libraries (the heap kernel csrc/cosine_topk.cu and
+           the large-k kernels csrc/cosine_topk_large.cu, one nvcc each,
+           started together, then the latent-attention decode kernel
+           csrc/mla_decode.cu) and the native tokenizer (g++), from the
+           sources in the checkout, into build/rag_uq_tpu_torch/; prints the
+           compiler's registers, spills and shared memory, and the counts of
+           HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
+           library's SASS, and fails if either is zero in any;
   kernel   the heap kernel against its plain PyTorch twin on the card: the
            edge cases of tests/test_pallas_topk.py, then at the main path's
            shapes B = 2048 and 1, k = 128 and MAX_K, a ragged query tile, a
@@ -46,6 +47,25 @@ Phases, each printing one line "phase <name> ok <seconds>":
            and D = 104 through DenseIndex; each case timed with CUDA events
            beside torch.matmul + torch.topk, and each main-shape k beside
            its bound and the plain twin;
+  mla      the latent-attention decode kernel (ops/mla_decode.py's
+           cuda_mla_decode) against its plain twin and a float64 evaluation
+           of the same bf16 inputs at MLA_SHAPES: the dsv2lite.mc_answer
+           cell's shape (32 prompts of 1,100-1,400 tokens, group 10, 16
+           heads, t = 0, 1, 49, 98) and the edges (one prompt, group 1,
+           lengths no multiple of 64, a one-token prompt, 128 heads); its
+           error against float64 at most mla.ERR_MARGIN times the twin's;
+           at t = 0, 49, 98 of the cell's shape the kernel (both passes,
+           CUDA events), its bound, the plain twin and the host's time a
+           launch (cli/profile_mla_decode.py's measure); then DeepSeek-V2-Lite
+           at its published widths, one call of generate_batch_scored at the
+           cell's shape (320 rows, 100 tokens) to warm up, the launch counts
+           zeroed, one more call, in which cuda_mla_decode.launches and the
+           tracer's mla.decode_kernel must both equal the layers (27) times
+           its decode steps; and profile_mla_decode's step_probe, three
+           more calls: one as it is (its seconds), then the host's and the
+           card's ms a decode step with the card idle before each, the host's
+           as the generator runs, and the host's ms of a layer's attention
+           and expert layer;
   slice    a 100k-passage index at bench.py's shape behind a QueryService
            (max_batch 2048, scatter-mode BM25, a pool7/maxnorm/binary router
            with seeded random weights) answering three 2048-query requests
@@ -188,8 +208,9 @@ levels and the parity retrieval arm runs with the kernel's launch counts
 set to 0 just before it and fails if the dense kernel was not launched in
 it (the persist path also if the large-k kernels were not). Then every number the
 train phase recorded, one "train <key> <value>" line each, one JSON line
-{"kernels": [...]}, a row for the heap kernel and one for the large-k
-kernels, and, last, {"ok": true, "device": ...}.
+{"kernels": [...]}, a row for the heap kernel, one for the large-k
+kernels and one for the latent-attention decode kernel, and, last,
+{"ok": true, "device": ...}.
 A watchdog dumps every thread's stack and exits non-zero if the run hangs.
 Needs no network; imports nothing of JAX.
 """
@@ -223,6 +244,7 @@ from rag_uq_tpu_torch.cli import evaluate as evaluate_cli
 from rag_uq_tpu_torch.cli import parity as parity_cli
 from rag_uq_tpu_torch.cli import parity_e2e as parity_e2e_cli
 from rag_uq_tpu_torch.cli import profile_fused as profile_fused_cli
+from rag_uq_tpu_torch.cli import profile_mla_decode as profile_mla_cli
 from rag_uq_tpu_torch.cli import run_pipeline as run_pipeline_cli
 from rag_uq_tpu_torch.cli import serve as serve_mod
 from rag_uq_tpu_torch.cli import train_encoder as train_encoder_cli
@@ -246,12 +268,14 @@ from rag_uq_tpu_torch.embed.train import EncoderTrainConfig, load_encoder_checkp
 from rag_uq_tpu_torch.eval.evaluator import RAGEvaluator
 from rag_uq_tpu_torch.eval.metrics import exact_match
 from rag_uq_tpu_torch.index.dense import DenseIndex
+from rag_uq_tpu_torch.llm.deepseek_v2 import DeepseekV2Config, DeepseekV2LM, softmax_scale
 from rag_uq_tpu_torch.llm.tiny_lm import TinyLM, TinyLMConfig
 from rag_uq_tpu_torch.llm.train import (
     LMTrainConfig, TinyLMTrainer, encode_qa_examples, load_lm_checkpoint,
 )
 from rag_uq_tpu_torch.native import binding as native_binding
 from rag_uq_tpu_torch.ops import cosine_topk as ck
+from rag_uq_tpu_torch.ops import mla_decode as mla
 from rag_uq_tpu_torch.parallel import sharding
 from rag_uq_tpu_torch.parallel.sharded_index import ShardedHybridIndex
 from rag_uq_tpu_torch.retrieval import fused as fused_mod
@@ -262,9 +286,10 @@ from rag_uq_tpu_torch.router.train import RouterTrainer, load_router_checkpoint
 from rag_uq_tpu_torch.text.tokenize import fnv1a_64
 from rag_uq_tpu_torch.uq.conformal import ConformalRAG, conformal_p_value_device
 from rag_uq_tpu_torch.uq.mc import MCDropoutConfidence
+from rag_uq_tpu_torch.utils import profiling
 from rag_uq_tpu_torch.utils.checkpoint import load_flax_checkpoint
 
-WATCHDOG_S = 840  # well inside the 1200 s a run may take
+WATCHDOG_S = 1400  # inside the 1500 s a run on the card is given
 # bench.py's shape.
 N_DOCS, DIM, VOCAB, DOC_LEN, BATCH, K, POOL = 100_000, 768, 30_000, 40, 2048, 10, 50
 CAP = 131_072  # the dense index's capacity at 100k rows (pow2 growth)
@@ -275,6 +300,18 @@ SHARDED_BATCH = 4096  # the slice phase's dense fill chunk: the same rows, bit f
 SHARDED_RANK_DOCS = 20_480  # the two gloo ranks' passages: 5 batches of 4096
 ORACLE_QUERIES = 256  # queries through search_batch_unfused
 LARGE_KS = (257, 1000, 8192)
+# The latent-attention decode kernel: dsv2lite.mc_answer's shape (32 prompts
+# of 1,100-1,400 tokens, 10 slots each, 16 heads; steps t of 100), then the
+# edges: one prompt, group 1, lengths no multiple of 64, a one-token prompt,
+# 128 heads. (name, prompt lengths, group, heads, t).
+MLA_CELL_LENS = [1100 + (37 * i) % 301 for i in range(32)]
+MLA_SHAPES = (
+    [("cell", MLA_CELL_LENS, 10, 16, t) for t in (0, 1, 49, 98)]
+    + [("one_prompt", [1350], 10, 16, 49), ("group_1", MLA_CELL_LENS[:8], 1, 16, 20),
+       ("ragged_not_64", [1101, 77, 650], 10, 16, 5), ("one_token", [1, 1300], 10, 16, 3),
+       ("heads_128", [1000, 513], 2, 128, 30)])
+MLA_TIMED_T = (0, 49, 98)
+MLA_MAX_TOKENS = 100
 KERNEL_ATOL = 1e-3  # kernel vs plain twin: f32 sums of bf16 products, other order
 F32_ATOL = 1e-5  # f32 corpus: f32 FMA products on both sides (no TF32), other order
 FNV_PRIME = np.uint64(0x100000001B3)
@@ -448,13 +485,16 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     built, large = ck.build_all()
     log(f"  both libraries built in {time.perf_counter() - t0:.2f}s (in parallel)")
-    for lib in (built, large):
+    t0 = time.perf_counter()
+    decode = mla.build()
+    log(f"  latent-attention decode library built in {time.perf_counter() - t0:.2f}s")
+    for lib in (built, large, decode):
         log(f"  nvcc {lib.path.name}: {lib.seconds:.2f}s")
         for line in lib.log.splitlines():
             if "Used" in line or "spill" in line or "smem" in line or "entry function" in line:
                 log(f"  {line.strip()}")
     cuobjdump = Path(ck.nvcc_path()).with_name("cuobjdump")
-    for lib in (built, large):
+    for lib in (built, large, decode):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(lib.path)],
             capture_output=True, text=True, timeout=300, check=True,
@@ -584,6 +624,74 @@ def phase_kernel(gen: torch.Generator) -> dict:
         "merge_ms": merge_ms, "d256": d256, "regime": regime,
     }
 
+
+
+def phase_mla(seed: int) -> dict:
+    """The latent-attention decode kernel against its plain twin and float64
+    at MLA_SHAPES, timed at the cell's shape; then one call of the published
+    generator with the launch counts zeroed, and its decode steps' times."""
+    dev = torch.device("cuda")
+    scale = softmax_scale(DeepseekV2Config())
+    cases = []
+    for name, lens, group, heads, t in MLA_SHAPES:
+        args_t = (*profile_mla_cli.inputs(lens, group, heads, MLA_MAX_TOKENS, seed + t, dev),
+                  t, group, scale, mla.RANK)
+        err = profile_mla_cli.errors(args_t)
+        log(f"  mla_decode {name} t={t}: kernel {err['kernel_err']:.5f}, "
+            f"plain twin {err['plain_err']:.5f} of a row's RMS against float64")
+        if err["kernel_err"] > mla.ERR_MARGIN * err["plain_err"]:
+            raise AssertionError(f"mla_decode {name} t={t}: the kernel's error "
+                                 f"{err['kernel_err']} > {mla.ERR_MARGIN} x the plain twin's "
+                                 f"{err['plain_err']}")
+        cases.append({"shape": name, "prompts": len(lens), "group": group, "heads": heads,
+                      "t": t, **err})
+        if name == "cell" and t in MLA_TIMED_T:
+            row = profile_mla_cli.measure(args_t, lens)
+            log(f"  mla_decode cell t={t}: kernel {row['kernel_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['roofline_pct']:.1f}%), plain "
+                f"{row['plain_ms']:.4f} ms, host {row['host_ms_a_launch']:.4f} ms a launch")
+            cases[-1].update({k: row[k] for k in ("kernel_ms", "bound_ms", "plain_ms",
+                                                  "host_ms_a_launch", "device_ms", "plan")})
+        del args_t
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = DeepseekV2LM(DeepseekV2Config(), seed=seed, device=dev)
+    setup_s = time.perf_counter() - t0
+    call = profile_mla_cli.cell_call(MLA_CELL_LENS, 10, seed)
+    lm.generate_batch_scored(*call, max_tokens=MLA_MAX_TOKENS, seed=seed)  # warm-up
+    mla.cuda_mla_decode.launches = 0
+    profiling.enable()
+    try:
+        profiling.take()  # zero the counters
+        t0 = time.perf_counter()
+        lm.generate_batch_scored(*call, max_tokens=MLA_MAX_TOKENS, seed=seed)
+        call_s = time.perf_counter() - t0
+        counters = profiling.take()["counters"]
+    finally:
+        profiling.disable()
+    steps, layers = lm.last_stats["steps"], lm.config.num_hidden_layers
+    launches = {"mla.decode_kernel": counters.get("mla.decode_kernel", 0),
+                "cuda_mla_decode.launches": mla.cuda_mla_decode.launches,
+                "layers_x_steps": layers * steps}
+    log(f"  generate_batch_scored at the cell's shape ({len(call[0])} rows, {steps} decode "
+        f"steps, {call_s:.3f} s; the model drawn in {setup_s:.2f} s): {launches}")
+    if steps < 1 or counters.get("gen.decode_steps") != steps or len(set(launches.values())) != 1:
+        raise AssertionError(f"the decode kernel ran {launches} times in {steps} steps "
+                             f"(gen.decode_steps {counters.get('gen.decode_steps')})")
+    step = profile_mla_cli.step_probe(lm, call, MLA_MAX_TOKENS, seed)
+    log(f"  decode step: {json.dumps(step)}")
+    del lm
+    torch.cuda.empty_cache()
+    timed = [c for c in cases if "kernel_ms" in c]
+    return {
+        "name": "mla_decode", "route": "cuda", "source": "rag_uq_tpu_torch/csrc/mla_decode.cu",
+        "replaces": None, "max_kernel_err": max(c["kernel_err"] for c in cases),
+        "max_plain_err": max(c["plain_err"] for c in cases),
+        **{key: [c[key] for c in timed] for key in ("t", "kernel_ms", "bound_ms", "plain_ms",
+                                                    "host_ms_a_launch")},
+        "call_s": call_s, "decode_steps": steps, "launches": launches, "step": step,
+        "cases": cases,
+    }
 
 def same_merge(mv, mi, part_v, part_i, k: int, what: str) -> None:
     """The merge pass's result equals merge_plain's on the same lists, the
@@ -2553,6 +2661,8 @@ def main() -> int:
     with phase("large_k"):
         large_row = phase_kernel_large(gen)
     torch.cuda.empty_cache()
+    with phase("mla"):
+        mla_row = phase_mla(args.seed)
     with phase("slice"):
         ctx = phase_slice(args.seed, device["name"])
     with phase("twotier"):
@@ -2616,7 +2726,7 @@ def main() -> int:
     row["train_phase"] = train
     large_row["launches"] = large_launches  # the persist path's k = 1000 searches
     row["bm25_pool_s"] = {"scatter": ctx["scatter_pool_s"], "twotier": ctx["twotier_pool_s"]}
-    print(json.dumps({"kernels": [row, large_row]}), flush=True)
+    print(json.dumps({"kernels": [row, large_row, mla_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"], "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -32,9 +32,14 @@ part of the cache, ``[prompts, L, 576]`` a layer with per-prompt lengths.
 The rows that share a prompt are its *slots*: the prompt part is shared,
 not copied, and each slot has its own part, ``[slots, max_tokens, 576]`` a
 layer, for the tokens it generates. Decode attends in the latent space by
-absorbing ``W_UK`` into the query and ``W_UV`` after the attention: the
-slots of one prompt read its latents in one batched product, as extra
-heads. Each slot's position is its prompt's length plus the step.
+absorbing ``W_UK`` into the query and ``W_UV`` after the attention. Between
+the two, ``ops/mla_decode.py::mla_decode`` attends each slot over its
+prompt's latents and its own under one softmax: on the card one
+hand-written kernel (``csrc/mla_decode.cu``: the slots of one prompt read
+its latents once a step, as 64-row tiles of (slot, head) rows, scores and
+probabilities kept on chip, sums in float32), on the CPU the plain chain of
+batched products. Each slot's position is its prompt's length plus the
+step. The kernel is built when the generator is made on a card.
 
 The expert layer sorts the token-expert pairs by expert and runs each
 expert's product over its group as one grouped product a weight matrix
@@ -71,6 +76,7 @@ import torch.nn.functional as F
 from rag_uq_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_uq_tpu_torch.llm.tiny_lm import sample_top_p
 from rag_uq_tpu_torch.llm.word_tokenizer import WordTokenizer
+from rag_uq_tpu_torch.ops import mla_decode as mla
 from rag_uq_tpu_torch.utils import profiling
 
 # The expert layer runs the prefill's tokens in chunks of at most this many.
@@ -297,27 +303,21 @@ class _Layer:
 
 class LatentCache:
     """The latents of one call: ``prompt[i]`` [P, Lp, latent] (the distinct
-    prompts, shared by their slots), ``gen[i]`` [S, max_tokens, latent] (each
-    slot's generated tokens), ``mask`` [S, 1, Lp] (0 inside the slot's
-    prompt, -inf past it) and ``group``, the slots a prompt."""
+    prompts, shared by their slots; zero past each prompt's length ``lens``),
+    ``gen[i]`` [S, max_tokens, latent] (each slot's generated tokens) and
+    ``group``, the slots a prompt."""
 
     def __init__(self, prompt: List[torch.Tensor], lens: torch.Tensor):
         self.prompt, self.lens = prompt, lens
         self.gen: List[torch.Tensor] = []
-        self.mask: Optional[torch.Tensor] = None
         self.group = 0
 
     def fork(self, group: int, max_tokens: int) -> None:
         """Give each prompt ``group`` slots, each with room for ``max_tokens``."""
-        p, lp, d = self.prompt[0].shape
-        slots = p * group
+        p, _, d = self.prompt[0].shape
         self.group = group
-        self.gen = [torch.empty((slots, max_tokens, d), dtype=c.dtype, device=c.device)
+        self.gen = [torch.empty((p * group, max_tokens, d), dtype=c.dtype, device=c.device)
                     for c in self.prompt]
-        pos = torch.arange(lp, device=self.lens.device)
-        mask = torch.zeros((p, 1, lp), dtype=torch.float32, device=self.lens.device)
-        mask.masked_fill_(pos[None, None, :] >= self.lens[:, None, None], float("-inf"))
-        self.mask = mask.repeat_interleave(group, dim=0)
 
 
 class DeepseekV2Model:
@@ -453,19 +453,9 @@ class DeepseekV2Model:
         q_nope, q_pe, latent = self._qkv(layer, h, cos, sin)
         gen = cache.gen[i]
         self.store_latent(gen, t, latent)
-        gen = gen[:, : t + 1]
         q_lat = torch.bmm(q_nope.transpose(0, 1), layer.w_uk)        # [nh, S, r]
         q = torch.cat([q_lat.transpose(0, 1), q_pe], dim=-1)         # [S, nh, latent]
-        prompt = cache.prompt[i]
-        p, lp, d = prompt.shape
-        g = cache.group
-        s_p = torch.bmm(q.view(p, g * nh, d), prompt.transpose(1, 2)).view(s, nh, lp)
-        s_g = torch.bmm(q, gen.transpose(1, 2))                      # [S, nh, t + 1]
-        scores = torch.cat([s_p.float() * self.scale + cache.mask, s_g.float() * self.scale],
-                           dim=-1)
-        a = torch.softmax(scores, dim=-1).to(h.dtype)
-        o = torch.bmm(a[..., :lp].reshape(p, g * nh, lp), prompt[..., :r]).view(s, nh, r)
-        o = o + torch.bmm(a[..., lp:], gen[..., :r])
+        o = mla.mla_decode(q, cache.prompt[i], cache.lens, gen, t, cache.group, self.scale, r)
         o = torch.bmm(o.transpose(0, 1), layer.w_uv_t)               # [nh, S, v]
         return F.linear(o.transpose(0, 1).reshape(s, nh * cfg.v_head_dim), layer.o_proj)
 
@@ -686,6 +676,8 @@ class DeepseekV2LM:
         self.config = config or DeepseekV2Config()
         self.model = DeepseekV2Model(self.config, device)
         self.device = self.model.device
+        if self.device.type == "cuda":
+            mla.build()  # the decode kernel, at set-up rather than at the first step
         self.model.draw_weights(seed)
         self.tokenizer = tokenizer or WordTokenizer(min(100_000, self.config.vocab_size - 2))
         if self.tokenizer.eos >= self.config.vocab_size:

@@ -73,8 +73,11 @@ library did not load, in ``text/tokenize.py::hash_texts``, which
 the prefill, sum of L (L + 1) / 2), ``gen.decode_steps``,
 ``gen.decode_positions`` (steps times rows), ``gen.cache_positions`` (the
 cached positions each row's decode steps attend over, summed), ``gen.tokens``
-(tokens generated, EOS included) and ``moe.pairs`` (token-expert pairs an
-expert layer routed).
+(tokens generated, EOS included), ``moe.pairs`` (token-expert pairs an
+expert layer routed) and ``mla.decode_kernel`` (launches of the latent
+attention's decode kernel, ``ops/mla_decode.py::cuda_mla_decode``: one a
+layer a decode step on the card, so a window's count is the layers times
+its ``gen.decode_steps``; the CPU's plain path counts none).
 
 A span's ``n`` may be set inside its block (``with span(...) as s:``,
 ``s`` None while off). ``device_sync`` is a barrier on the device of a tensor.
