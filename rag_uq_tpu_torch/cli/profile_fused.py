@@ -13,10 +13,11 @@ as its own call, plus the full query at several batch sizes:
 - the dense pool (the hand-written top-k kernel on a card) and the dense
   product alone;
 - the BM25 pools whole (scatter with and without compaction, two-tier), and
-  the served scatter pool's parts: the active-row gather of the impact
-  matrix, the high-tier product (the one-hot and the f32 product), the
-  low-tier block gather with its scatter-add, and the top-k over the
-  ``[B, N]`` totals;
+  the served scatter pool's parts, through the functions of
+  ``ops/bm25.py`` that ``topk_lowscatter`` runs: the active-row gather of
+  the impact matrix, the high-tier product (``high_tier``: the one-hot and
+  the f32 product), the low-tier block gather (``block_postings``) with its
+  scatter-add, and the top-k over the ``[B, N]`` totals;
 - the union merge, router gate and final top-k (``fuse_pools_select``).
 
 On a card each time is CUDA events around ``reps`` launches after
@@ -188,38 +189,18 @@ def run_profile(
         **low, qtids=qtids, k=pool, beam=beam, impact_scale=state["impact_scale"],
         nonneg=nonneg))
 
-    # The served scatter pool's parts, as ops/bm25.py::topk_lowscatter runs them.
+    # The served scatter pool's parts, through the pieces ops/bm25.py's
+    # topk_lowscatter runs.
     impact, act = state["impact"], qterms["active_rows"].long()
-    rows_compact = qterms["rows_compact"]
-    onehot_dtype = torch.bfloat16 if impact.dtype == torch.int8 else impact.dtype
     stage("bm25_active_row_gather", lambda: impact[act])
-    sub_impact = impact[act]
-    t_active = act.shape[0]
-    b_ix = torch.arange(batch, device=dev)[:, None]
-    scale_slot = (state["impact_scale"][act][rows_compact.clamp(min=0).long()]
-                  if state["impact_scale"] is not None
-                  else torch.ones(rows_compact.shape, dtype=torch.float32, device=dev))
-    rc = torch.where(rows_compact >= 0, rows_compact, t_active).long()
-
-    def high_tier(out: torch.Tensor) -> torch.Tensor:
-        onehot = torch.zeros((batch, t_active + 1), dtype=onehot_dtype, device=dev)
-        onehot.index_put_((b_ix.expand_as(rc), rc), scale_slot.to(onehot_dtype),
-                          accumulate=True)
-        torch.matmul(onehot[:, :t_active].float(), sub_impact.to(onehot_dtype).float(),
-                     out=out[:, :ncap])
-        return out
-
+    sub_impact, sub_scale = impact[act], state["impact_scale"][act]
     total = torch.zeros((batch, ncap + 1), dtype=torch.float32, device=dev)
-    stage("bm25_high_tier_matmul_compact", lambda: high_tier(total))
+    stage("bm25_high_tier_matmul_compact", lambda: bm25_ops.high_tier(
+        sub_impact, qtids, state["term_row"], sub_scale, rows_compact=qterms["rows_compact"],
+        out=total[:, :ncap]))
     if "low_blocks" in state:
-        low_blocks, low_row = state["low_blocks"], state["low_row"]
-        safe_q = torch.where(qtids >= 0, qtids, 0).long()
-        brows = torch.where(qtids >= 0, low_row[safe_q], low_blocks.shape[0] - 1).long()
-
         def low_scatter() -> torch.Tensor:
-            sl = low_blocks[brows]
-            docs_ = sl[:, :, 0, :].reshape(batch, -1)
-            w = sl.view(torch.float32)[:, :, 1, :].reshape(batch, -1)
+            docs_, w = bm25_ops.block_postings(state["low_blocks"], state["low_row"], qtids)
             return total.scatter_add_(1, docs_.long(), w)
 
         stage("bm25_low_blocks_plus_scatter", low_scatter)

@@ -1,9 +1,11 @@
 """BM25 sparse index: the counterpart of ``rag_uq_tpu/index/sparse.py::BM25Index``.
 
 The host build (native C++ tokenizer, or the Python one when that does not
-build), ``host_csr`` and the two-tier device layout of ``_sync_device`` are
-the JAX package's, computed with the same numpy code; the device arrays are
-torch tensors on the index's device. The Okapi idf follows
+build), ``host_csr`` and the device layout of ``_sync_device`` are the JAX
+package's, computed with the same numpy code; the device arrays are torch
+tensors on the index's device. The two-tier part of the layout is the
+one-shard case of ``index/twotier.py::bm25_twotier_layout``, which the
+sharded index lays out its shards with. The Okapi idf follows
 ``rank_bm25.BM25Okapi``: ln((N-df+0.5)/(df+0.5)), with strictly negative
 values floored at epsilon * mean(idf).
 
@@ -37,24 +39,17 @@ import torch
 from rag_uq_tpu_torch.core.config import BM25Config
 from rag_uq_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_uq_tpu_torch.core.types import DocStore, Document
+from rag_uq_tpu_torch.index.twotier import (
+    IMPACT_DTYPES,
+    bm25_twotier_layout,
+    local_twotier,
+    next_pow2,
+)
 from rag_uq_tpu_torch.ops import bm25 as bm25_ops
 from rag_uq_tpu_torch.text.tokenize import TOKENIZER_VERSION, Vocab, tokenize
 from rag_uq_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
-
-_TORCH_DTYPES = {
-    "bfloat16": torch.bfloat16,
-    "float16": torch.float16,
-    "float32": torch.float32,
-    "int8": torch.int8,
-}
-
-
-def _next_pow2(n: int, floor: int = 1) -> int:
-    n = max(n, floor)
-    return 1 << (n - 1).bit_length()
-
 
 def build_delta_csr(
     tid: np.ndarray,
@@ -99,8 +94,8 @@ def build_delta_csr(
     w_s = idf[tid_s] * tf_s * (k1 + 1.0) / np.maximum(denom, 1e-12)
 
     n_dp = tid_s.shape[0]
-    pcap = _next_pow2(max(n_dp, 1), floor=256)
-    vcap = max(vcap_min, _next_pow2(vsize, floor=1024))
+    pcap = next_pow2(max(n_dp, 1), floor=256)
+    vcap = max(vcap_min, next_pow2(vsize, floor=1024))
     indptr_p = np.full(vcap + 1, n_dp, dtype=np.int32)
     indptr_p[: vsize + 1] = indptr.astype(np.int32)
     post_doc = np.zeros(pcap, dtype=np.int32)
@@ -111,8 +106,8 @@ def build_delta_csr(
         "indptr": indptr_p,
         "post_doc": post_doc,
         "post_w": post_w,
-        "n_docs_cap": int(_next_pow2(max(n_delta_docs, 1), floor=8)),
-        "max_df": int(_next_pow2(int(df_delta.max()) if df_delta.size else 1, floor=8)),
+        "n_docs_cap": next_pow2(max(n_delta_docs, 1), floor=8),
+        "max_df": next_pow2(int(df_delta.max()) if df_delta.size else 1, floor=8),
         "base_docs": int(base["docs"]),
     }
 
@@ -135,7 +130,7 @@ class BM25Index:
         self.config = config or BM25Config(k1=k1, b=b)
         self.persist_path = Path(persist_path) if persist_path else None
         self.autosave = autosave
-        if self.config.impact_dtype not in _TORCH_DTYPES:
+        if self.config.impact_dtype not in IMPACT_DTYPES:
             raise ValueError(f"unknown impact_dtype {self.config.impact_dtype!r}")
         self.device = resolve_device(device)
         self.k1 = self.config.k1
@@ -189,7 +184,7 @@ class BM25Index:
         need = self._n_postings + extra
         if need <= self._tid.shape[0]:
             return
-        new_cap = _next_pow2(need)
+        new_cap = next_pow2(need)
         for name in ("_tid", "_doc", "_tf"):
             buf = getattr(self, name)
             grown = np.zeros(new_cap, dtype=buf.dtype)
@@ -266,7 +261,8 @@ class BM25Index:
     def host_csr(self) -> Dict[str, object]:
         """Host-side CSR with precomputed impacts (``index/sparse.py:261``).
 
-        Returns {indptr (int64, [V+1]), tid, doc, w, df, max_df, n_docs}.
+        Returns {indptr (int64, [V+1]), tid, doc, w, df, max_df, n_docs,
+        idf, avgdl}.
         """
         n_docs = len(self.store)
         n_post = self._n_postings
@@ -304,8 +300,10 @@ class BM25Index:
             "doc": doc_s,
             "w": w_s,
             "df": df,
-            "max_df": int(_next_pow2(int(df.max()) if vsize else 1, floor=8)),
+            "max_df": next_pow2(int(df.max()) if vsize else 1, floor=8),
             "n_docs": n_docs,
+            "idf": idf,
+            "avgdl": avgdl,
         }
 
     def _sync(self) -> Dict[str, object]:
@@ -325,17 +323,19 @@ class BM25Index:
             return self._sync_device()
 
     def _sync_device(self) -> Dict[str, object]:
-        """The two-tier device layout of ``index/sparse.py:313-502``."""
+        """The two-tier device layout of ``index/sparse.py:313-502``: the
+        one-shard ``bm25_twotier_layout``, plus the plain CSR and the padded
+        low-tier blocks."""
         csr = self.host_csr()
         n_docs = len(self.store)
         n_post = self._n_postings
         vsize = len(self.vocab)
         indptr, doc_s, w_s, df = csr["indptr"], csr["doc"], csr["w"], csr["df"]
-        tid_s = csr["tid"]
-
-        pcap = _next_pow2(max(n_post, 1), floor=1024)
-        vcap = _next_pow2(max(vsize, 1), floor=1024)
-        ncap = _next_pow2(max(n_docs, 1), floor=1024)
+        ncap = next_pow2(max(n_docs, 1), floor=1024)
+        layout = local_twotier(
+            bm25_twotier_layout(csr, 1, ncap, self.config, device=self.device), 0)
+        term_row, pcap, beam_cap = layout["term_row_host"], layout["pcap"], layout["beam"]
+        vcap = term_row.shape[0]
 
         post_doc = np.zeros(pcap, dtype=np.int32)
         post_doc[:n_post] = doc_s
@@ -344,72 +344,17 @@ class BM25Index:
         indptr_p = np.full(vcap + 1, n_post, dtype=np.int32)
         indptr_p[: vsize + 1] = indptr.astype(np.int32)
 
-        # Two-tier split: terms with df > threshold become rows of a dense
-        # [T, Ncap] impact matrix; the others are fully covered by posting
-        # slices of length `threshold`. At most max_rows terms go dense (the
-        # threshold rises, and the low-tier beam with it, to fit the budget).
-        thresh = self.config.dense_tier_threshold
-        impact_dtype = _TORCH_DTYPES[self.config.impact_dtype]
-        itemsize = torch.empty((), dtype=impact_dtype).element_size()
-        max_rows = min(
-            self.config.max_dense_tier_rows,
-            max(self.config.impact_budget_bytes // max(ncap * itemsize, 1), 8),
-        )
-        if vsize and int((df > thresh).sum()) > max_rows:
-            thresh = int(np.partition(df, -max_rows - 1)[-max_rows - 1])
-        dense_terms = np.nonzero(df > thresh)[0]
-        t_dense = dense_terms.shape[0]
-        tcap = _next_pow2(max(t_dense, 1), floor=8)
-        term_row = np.full(vcap, -1, dtype=np.int32)
-        term_row[dense_terms] = np.arange(t_dense, dtype=np.int32)
-
-        impact_scale = np.ones(tcap, dtype=np.float32)
-        impact = torch.zeros((tcap, ncap), dtype=impact_dtype, device=self.device)
-        if n_post:
-            rows_of_post = term_row[tid_s]
-            m = rows_of_post >= 0
-            rows_m, docs_m, w_m = rows_of_post[m], doc_s[m], w_s[m]
-            if self.config.impact_dtype == "int8":
-                # Per-term symmetric quantization: row scale = max|w| / 127.
-                row_max = np.zeros(tcap, dtype=np.float64)
-                np.maximum.at(row_max, rows_m, np.abs(w_m))
-                impact_scale = np.maximum(row_max / 127.0, 1e-12).astype(np.float32)
-                vals = torch.from_numpy(
-                    np.clip(np.rint(w_m / impact_scale[rows_m]), -127, 127)
-                    .astype(np.int8)
-                )
-            else:
-                # f64 -> f32 -> storage dtype, as ml_dtypes rounds for the TPU.
-                vals = torch.from_numpy(w_m).to(impact_dtype)
-            impact[self._to_device(rows_m).long(), self._to_device(docs_m).long()] = (
-                vals.to(self.device)
-            )
-
-        # Explicit (start, end) ranges: a plain indptr cannot represent the
-        # emptied dense-tier ranges since end_i aliases start_{i+1}.
-        low_start = indptr_p[:-1].copy()
-        low_end = indptr_p[1:].copy()
-        is_dense_term = np.zeros(vcap, dtype=bool)
-        is_dense_term[dense_terms] = True
-        low_end[is_dense_term] = low_start[is_dense_term]
-        low_ranges = np.stack([low_start, low_end]).astype(np.int32)
-
-        # Packed low-tier postings: row 0 = doc, row 1 = f32 weight bits.
-        packed = np.zeros((2, pcap), dtype=np.int32)
-        packed[0, :n_post] = doc_s.astype(np.int32)
-        packed[1, :n_post] = w_s.astype(np.float32).view(np.int32)
-
         # Padded per-term low-tier blocks [lcap, 2, beam], built within the
         # byte budget: a query's low tier is then one row gather. Padding
         # entries point at doc ncap (the totals' spare column); row lcap-1 is
         # all padding, and unknown/dense-tier terms map there.
-        beam_cap = int(_next_pow2(thresh, floor=8))
+        is_dense_term = term_row >= 0
         low_mask = (~is_dense_term[:vsize]) & (df > 0) if vsize else (
             np.zeros(0, dtype=bool)
         )
         low_terms = np.nonzero(low_mask)[0]
         n_low = int(low_terms.shape[0])
-        lcap = _next_pow2(n_low + 1, floor=8)
+        lcap = next_pow2(n_low + 1, floor=8)
         block_bytes = lcap * 2 * beam_cap * 4
         low_blocks = low_row = None
         if block_bytes <= self.config.low_block_budget_bytes:
@@ -436,15 +381,11 @@ class BM25Index:
             "indptr": self._to_device(indptr_p),
             "post_doc": self._to_device(post_doc),
             "post_w": self._to_device(post_w),
-            "low_ranges": self._to_device(low_ranges),
-            "post_packed": self._to_device(packed),
-            "term_row": self._to_device(term_row),
-            "impact": impact,
-            "impact_scale": self._to_device(impact_scale),
-            "beam": beam_cap,
-            "nonneg": bool(w_s.min() >= 0) if n_post else True,
-            "max_df": int(_next_pow2(int(df.max()) if vsize else 1, floor=8)),
-            "n_docs_cap": int(ncap),
+            **{name: layout[name] for name in (
+                "low_ranges", "post_packed", "term_row", "impact", "impact_scale",
+                "beam", "nonneg")},
+            "max_df": csr["max_df"],
+            "n_docs_cap": ncap,
         }
         if low_blocks is not None:
             self._device["low_blocks"] = self._to_device(low_blocks)
@@ -452,28 +393,22 @@ class BM25Index:
         self._dirty = False
         # Base snapshot for the main+delta sync: the frozen statistics score
         # later delta postings consistently with the unchanged base impacts.
-        idf_full = np.zeros(vsize, dtype=np.float64)
         active = df > 0
-        if n_post:
-            idf_full[active] = np.log(n_docs - df[active] + 0.5) - np.log(df[active] + 0.5)
-            avg_idf = idf_full[active].mean() if active.any() else 0.0
-            idf_full[active & (idf_full < 0)] = self.config.idf_epsilon * avg_idf
-        doc_len_all = np.asarray(self.doc_lens, dtype=np.float64)
         self._base = {
             "docs": n_docs,
             "postings": n_post,
-            "idf": idf_full,
+            "idf": csr["idf"],
             # The new-term floor: epsilon times the mean of the floored idf,
             # as the JAX index takes it (``index/sparse.py:491``).
-            "eps": (self.config.idf_epsilon * idf_full[active].mean())
-            if n_post and active.any() else 0.0,
-            "avgdl": doc_len_all.mean() if n_docs else 1.0,
+            "eps": self.config.idf_epsilon * csr["idf"][active].mean()
+            if active.any() else 0.0,
+            "avgdl": csr["avgdl"],
         }
         self._delta_device = None
         self.sync_generation += 1
         logger.info(
             "Synced BM25 device index: %d docs, %d terms (%d dense-tier), "
-            "%d postings", n_docs, vsize, t_dense, n_post,
+            "%d postings", n_docs, vsize, int(is_dense_term.sum()), n_post,
         )
         return self._device
 
@@ -552,12 +487,12 @@ class BM25Index:
             # (a trailing -1 slot is padding or an unknown term; both add 0).
             live_cols = np.nonzero((out != -1).any(axis=0))[0]
             longest = int(live_cols[-1]) + 1 if live_cols.size else 1
-            lq = min(_next_pow2(longest, floor=8), self.config.max_query_terms)
+            lq = min(next_pow2(longest, floor=8), self.config.max_query_terms)
             return np.ascontiguousarray(out[:, :lq])
         token_lists = [tokenize(q) for q in queries]
         max_terms = self.config.max_query_terms
         longest = max((len(t) for t in token_lists), default=1)
-        lq = min(_next_pow2(max(longest, 1), floor=8), max_terms)
+        lq = min(next_pow2(max(longest, 1), floor=8), max_terms)
         out = np.full((len(queries), lq), -1, dtype=np.int32)
         for i, toks in enumerate(token_lists):
             ids = self.vocab.encode(toks[:lq])
@@ -593,7 +528,7 @@ class BM25Index:
         ``exact=False`` the two-tier op (the same results up to the impact
         matrix's storage rounding and ties), which with
         ``delta_sync_fraction > 0`` may serve from a frozen base plus a small
-        delta, merged with a stable sort. ``approx`` has no PyTorch
+        delta, merged with a stable top-k. ``approx`` has no PyTorch
         counterpart (``lax.approx_max_k``): it only turns on ``lsel``.
         """
         qtids_np = self.encode_queries(queries) if qtids is None else qtids
@@ -617,22 +552,14 @@ class BM25Index:
             lsel=self.config.lsel if approx else 0,
             impact_scale=dev["impact_scale"], nonneg=dev["nonneg"],
         )
-        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         if delta is not None:
-            dscores = bm25_ops.score_all(
-                delta["indptr"], delta["post_doc"], delta["post_w"],
-                self._qtids(queries, qtids_np), delta["n_docs_cap"], delta["max_df"],
-            )
-            dv, di = bm25_ops.topk_from_scores(dscores, min(top_k, delta["n_docs_cap"]))
-            dv, di = dv.cpu().numpy(), di.cpu().numpy()
-            di = np.where(di >= 0, di + delta["base_docs"], -1)
-            cat_v = np.concatenate([vals, dv], axis=1)
-            cat_i = np.concatenate([idx, di], axis=1)
-            order = np.argsort(-cat_v, axis=1, kind="stable")[:, :top_k]
-            vals = np.take_along_axis(cat_v, order, axis=1)
-            idx = np.take_along_axis(cat_i, order, axis=1)
-        dead = vals <= 0.0
-        return np.where(dead, 0.0, vals).astype(np.float32), np.where(dead, -1, idx).astype(np.int32)
+            vals, idx = bm25_ops.merge_delta_pool(
+                vals, idx, delta["indptr"], delta["post_doc"], delta["post_w"],
+                self._qtids(queries, qtids_np), top_k, delta["n_docs_cap"], delta["max_df"],
+                delta["base_docs"])
+        else:
+            vals, idx = bm25_ops.positive_only(vals, idx)
+        return vals.cpu().numpy(), idx.cpu().numpy()
 
     def score_positions_batch(
         self,

@@ -1,11 +1,18 @@
 """BM25 scoring over CSR postings: the counterpart of ``rag_uq_tpu/ops/bm25.py``.
 
-The index layout is the JAX package's (term-major CSR with precomputed
-per-posting impacts, plus the two-tier layout of ``index/sparse.py``).
-Ported here: the exhaustive ``score_all`` oracle, ``score_docs`` for given
-docs, ``topk_from_scores`` and both pool ops, ``topk_twotier`` (the JAX
-default) and the scatter-mode ``topk_lowscatter``. On the TPU these are XLA,
-not Pallas; here they are plain PyTorch.
+The index layout is the JAX package's: term-major CSR with precomputed
+per-posting impacts, plus the two-tier layout that
+``index/twotier.py::bm25_twotier_layout`` builds for one device and for
+each shard. Ported here: the exhaustive ``score_all`` oracle, ``score_docs``
+for given docs, ``topk_from_scores`` and both pool ops, ``topk_twotier``
+(the JAX default) and the scatter-mode ``topk_lowscatter``. On the TPU these
+are XLA, not Pallas; here they are plain PyTorch.
+
+Both pool ops take the high tier through ``high_tier`` (the query one-hot
+times the impact rows) and fetch low-tier posting slices through
+``posting_slices``; ``twotier_pool`` chooses between them for the fused
+queries, one device or sharded, and ``merge_delta_pool`` folds a live-ingest
+delta into a pool.
 
 Query term ids are padded with -1 (no contribution); repeated query terms
 count once per occurrence, as in ``rank_bm25``'s ``get_scores``. Top-k takes
@@ -19,7 +26,7 @@ is sliced off before the top-k.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -93,6 +100,88 @@ def score_docs(
 _DOC_SENTINEL = torch.iinfo(torch.int32).max
 
 
+def high_tier(
+    impact: torch.Tensor,  # [T, N] impact rows: all of them, or the batch's active rows
+    qtids: torch.Tensor,  # [B, Lq]
+    term_row: torch.Tensor,  # [Vcap] -> dense-tier row id or -1
+    impact_scale: Optional[torch.Tensor] = None,  # [T] per-row int8 scales
+    rows_compact: Optional[torch.Tensor] = None,  # [B, Lq] row of ``impact`` or -1
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The high tier's f32 totals ``[B, N]``: a query one-hot (repeated terms
+    counted) times the impact rows.
+
+    Without ``rows_compact`` each query slot's row is its term's
+    ``term_row``, the one-hot counts ones and the int8 row scales multiply
+    its columns after. With ``rows_compact`` ``impact`` holds the batch's
+    active rows only, and each slot adds its row's scale in the one-hot's
+    dtype. The two can round differently for a term repeated four or more
+    times, as in the JAX package. The one-hot and impacts are bf16 values (or
+    int8 promoted to bf16, as on the TPU); their products are exact in f32,
+    so the f32 product matches the TPU's bf16 x bf16 -> f32 product up to
+    the order of its short sums.
+    """
+    t = impact.shape[0]
+    nq = qtids.shape[0]
+    dev = qtids.device
+    onehot_dtype = torch.bfloat16 if impact.dtype == torch.int8 else impact.dtype
+    if rows_compact is not None:
+        slot, scale = rows_compact, None
+        weight = (impact_scale[rows_compact.clamp(min=0).long()] if impact_scale is not None
+                  else torch.ones(slot.shape, dtype=torch.float32, device=dev))
+    else:
+        valid = qtids >= 0
+        slot = torch.where(valid, term_row[torch.where(valid, qtids, 0).long()], -1)
+        weight, scale = torch.ones(slot.shape, dtype=onehot_dtype, device=dev), impact_scale
+    # Dead slots go to a spare column t that is dropped after.
+    col = torch.where(slot >= 0, slot, t).long()
+    onehot = torch.zeros((nq, t + 1), dtype=onehot_dtype, device=dev)
+    b_ix = torch.arange(nq, device=dev)[:, None]
+    onehot.index_put_((b_ix.expand_as(col), col), weight.to(onehot_dtype), accumulate=True)
+    onehot = onehot[:, :t]
+    if scale is not None:
+        onehot = onehot * scale.to(onehot_dtype)[None, :]
+    return torch.matmul(onehot.float(), impact.to(onehot_dtype).float(), out=out)
+
+
+def posting_slices(
+    low_ranges: torch.Tensor,  # [2, Vcap] explicit (start, end) per term
+    post_packed: torch.Tensor,  # [2, Pcap] int32: (doc, bitcast f32 weight)
+    qtids: torch.Tensor,  # [B, Lq]
+    beam: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each (query, term)'s low-tier posting slice: (docs, weights, ok), each
+    ``[B, Lq, beam]``. A slice holds at most ``beam`` postings by
+    construction; entries outside it (``ok`` False) are arbitrary, and each
+    caller fills them as its sum needs."""
+    pcap = post_packed.shape[1]
+    valid = qtids >= 0
+    safe = torch.where(valid, qtids, 0).long()
+    start = torch.where(valid, low_ranges[0][safe], 0)
+    end = torch.where(valid, low_ranges[1][safe], 0)
+    safe_start = start.clamp(max=max(pcap - beam, 0))
+    pos = safe_start[..., None] + torch.arange(beam, device=qtids.device)
+    at = pos.clamp(max=pcap - 1).long()
+    ok = (pos >= start[..., None]) & (pos < end[..., None])
+    return post_packed[0][at], post_packed[1].view(torch.float32)[at], ok
+
+
+def block_postings(
+    low_blocks: torch.Tensor,  # [Lcap, 2, beam] padded blocks
+    low_row: torch.Tensor,  # [Vcap] -> block row (pad = last)
+    qtids: torch.Tensor,  # [B, Lq]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The queries' low-tier postings from the padded per-term blocks, one
+    row gather: (docs, weights), each ``[B, Lq * beam]``; padding entries
+    point at the totals' spare column with weight 0."""
+    nq = qtids.shape[0]
+    valid = qtids >= 0
+    rows = torch.where(valid, low_row[torch.where(valid, qtids, 0).long()],
+                       low_blocks.shape[0] - 1).long()
+    sl = low_blocks[rows]  # [B, Lq, 2, beam]
+    return sl[:, :, 0, :].reshape(nq, -1), sl.view(torch.float32)[:, :, 1, :].reshape(nq, -1)
+
+
 def _low_tier_segsum(
     low_ranges: torch.Tensor,  # [2, Vcap] explicit (start, end) per term
     post_packed: torch.Tensor,  # [2, Pcap] int32: (doc, bitcast f32 weight)
@@ -108,20 +197,10 @@ def _low_tier_segsum(
     sums [B, Lq*beam]); slots that are not the last of a run have doc -1 and
     sum -inf.
     """
-    pcap = post_packed.shape[1]
     nq, n_terms = qtids.shape
-    dev = qtids.device
-    valid = qtids >= 0
-    safe = torch.where(valid, qtids, 0).long()
-    start = torch.where(valid, low_ranges[0][safe], 0)
-    end = torch.where(valid, low_ranges[1][safe], 0)
-    safe_start = start.clamp(max=max(pcap - beam, 0))
-    off = torch.arange(beam, device=dev)
-    pos = safe_start[..., None] + off  # [B, Lq, beam]
-    at = pos.clamp(max=pcap - 1).long()
-    ok = (pos >= start[..., None]) & (pos < end[..., None])
-    docs = torch.where(ok, post_packed[0][at], _DOC_SENTINEL).reshape(nq, -1)
-    w = torch.where(ok, post_packed[1].view(torch.float32)[at], 0.0).reshape(nq, -1)
+    docs, w, ok = posting_slices(low_ranges, post_packed, qtids, beam)
+    docs = torch.where(ok, docs, _DOC_SENTINEL).reshape(nq, -1)
+    w = torch.where(ok, w, 0.0).reshape(nq, -1)
 
     order = torch.sort(docs, dim=-1, stable=True).indices
     docs = torch.gather(docs, -1, order)
@@ -170,25 +249,8 @@ def topk_twotier(
     positive-scores-only contract.
     """
     del approx
-    tcap, ncap = impact.shape
-    nq = qtids.shape[0]
-    dev = qtids.device
-    valid_q = qtids >= 0
-    safe_q = torch.where(valid_q, qtids, 0).long()
-    rows = torch.where(valid_q, term_row[safe_q], -1).long()  # [B, Lq]
-    b_ix = torch.arange(nq, device=dev)[:, None]
-
-    onehot_dtype = torch.bfloat16 if impact.dtype == torch.int8 else impact.dtype
-    onehot = torch.zeros((nq, tcap + 1), dtype=onehot_dtype, device=dev)
-    onehot.index_put_(
-        (b_ix.expand_as(rows), torch.where(rows >= 0, rows, tcap)),
-        torch.ones(rows.shape, dtype=onehot_dtype, device=dev),
-        accumulate=True,
-    )
-    onehot = onehot[:, :tcap]
-    if impact_scale is not None:
-        onehot = onehot * impact_scale.to(onehot_dtype)[None, :]
-    high = torch.matmul(onehot.float(), impact.to(onehot_dtype).float())  # [B, N]
+    ncap = impact.shape[1]
+    high = high_tier(impact, qtids, term_row, impact_scale)  # [B, N]
 
     ldocs, lsums = _low_tier_segsum(low_ranges, post_packed, qtids, beam)
     if lsel and ldocs.shape[-1] > lsel:
@@ -246,68 +308,21 @@ def topk_lowscatter(
     """
     del approx
     ncap = impact.shape[1]
-    pcap = post_packed.shape[1]
     nq = qtids.shape[0]
-    dev = qtids.device
-    valid_q = qtids >= 0
-    safe_q = torch.where(valid_q, qtids, 0).long()
-    b_ix = torch.arange(nq, device=dev)[:, None]
-
-    # High tier. The one-hot and impacts are bf16 values (or int8 promoted
-    # to bf16, as on the TPU); their products are exact in f32, so taking
-    # the product in f32 matches the TPU's bf16 x bf16 -> f32 product up to
-    # the order of its short sums.
-    onehot_dtype = torch.bfloat16 if impact.dtype == torch.int8 else impact.dtype
+    total = torch.zeros((nq, ncap + 1), dtype=torch.float32, device=qtids.device)
     if active_rows is not None and rows_compact is not None:
-        t_active = active_rows.shape[0]
         rows = active_rows.long()
-        sub_impact = impact[rows]  # [Ta_cap, N]
-        if impact_scale is not None:
-            scale_slot = impact_scale[rows][rows_compact.clamp(min=0).long()]
-        else:
-            scale_slot = torch.ones(rows_compact.shape, dtype=torch.float32, device=dev)
-        # Dead slots go to a spare column t_active that is dropped after.
-        rc = torch.where(rows_compact >= 0, rows_compact, t_active).long()
-        onehot = torch.zeros((nq, t_active + 1), dtype=onehot_dtype, device=dev)
-        onehot.index_put_(
-            (b_ix.expand_as(rc), rc), scale_slot.to(onehot_dtype), accumulate=True
-        )
-        onehot = onehot[:, :t_active]
+        high_tier(impact[rows], qtids, term_row,
+                  impact_scale[rows] if impact_scale is not None else None,
+                  rows_compact=rows_compact, out=total[:, :ncap])
     else:
-        tcap = impact.shape[0]
-        rows = torch.where(valid_q, term_row[safe_q], -1).long()
-        onehot = torch.zeros((nq, tcap + 1), dtype=onehot_dtype, device=dev)
-        onehot.index_put_(
-            (b_ix.expand_as(rows), torch.where(rows >= 0, rows, tcap)),
-            torch.ones(rows.shape, dtype=onehot_dtype, device=dev),
-            accumulate=True,
-        )
-        onehot = onehot[:, :tcap]
-        if impact_scale is not None:
-            onehot = onehot * impact_scale.to(onehot_dtype)[None, :]
-        sub_impact = impact
-    total = torch.zeros((nq, ncap + 1), dtype=torch.float32, device=dev)
-    torch.matmul(
-        onehot.float(), sub_impact.to(onehot_dtype).float(), out=total[:, :ncap]
-    )
+        high_tier(impact, qtids, term_row, impact_scale, out=total[:, :ncap])
 
     # Low tier: posting entries scattered into the totals.
     if low_blocks is not None and low_row is not None:
-        pad_row = low_blocks.shape[0] - 1
-        brows = torch.where(valid_q, low_row[safe_q], pad_row).long()
-        sl = low_blocks[brows]  # [B, Lq, 2, beam]
-        docs = sl[:, :, 0, :].reshape(nq, -1)
-        w = sl.view(torch.float32)[:, :, 1, :].reshape(nq, -1)
+        docs, w = block_postings(low_blocks, low_row, qtids)
     else:
-        start = torch.where(valid_q, low_ranges[0][safe_q], 0)
-        end = torch.where(valid_q, low_ranges[1][safe_q], 0)
-        safe_start = start.clamp(max=max(pcap - beam, 0))
-        off = torch.arange(beam, device=dev)
-        pos = safe_start[..., None] + off  # [B, Lq, beam]
-        at = pos.clamp(max=pcap - 1).long()
-        docs = post_packed[0][at]
-        w = post_packed[1].view(torch.float32)[at]
-        ok = (pos >= start[..., None]) & (pos < end[..., None])
+        docs, w, ok = posting_slices(low_ranges, post_packed, qtids, beam)
         docs = torch.where(ok, docs, 0).reshape(nq, -1)  # masked -> add 0.0
         w = torch.where(ok, w, 0.0).reshape(nq, -1)
     total.scatter_add_(1, docs.long(), w)
@@ -315,12 +330,61 @@ def topk_lowscatter(
     return vals, idx.to(torch.int32)
 
 
+def positive_only(vals: torch.Tensor, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's positive-scores-only contract: 0.0 and -1 in the
+    slots whose score is not positive (``streaming_index.py:172-179``)."""
+    dead = vals <= 0.0
+    return torch.where(dead, 0.0, vals), torch.where(dead, -1, idx).to(torch.int32)
+
+
 def topk_from_scores(
     scores: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over score rows; 0.0 and -1 for non-positive-score slots
-    (the reference's positive-scores-only contract,
-    ``streaming_index.py:172-179``)."""
-    vals, idx = stable_topk(scores, k)
-    dead = vals <= 0.0
-    return torch.where(dead, 0.0, vals), torch.where(dead, -1, idx).to(torch.int32)
+    """Top-k over score rows, positive scores only (``positive_only``)."""
+    return positive_only(*stable_topk(scores, k))
+
+
+def twotier_pool(
+    layout: Dict[str, Any], qtids: torch.Tensor, k: int, *, beam: int, sparse_mode: str,
+    approx: bool, lsel: int, nonneg: bool, active_rows: Optional[torch.Tensor] = None,
+    rows_compact: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The raw BM25 top-k pool over a two-tier layout, as both fused queries
+    take it: ``topk_lowscatter`` in ``"scatter"`` mode (with the batch's
+    active rows and the layout's padded low-tier blocks where given), else
+    ``topk_twotier``, whose ``lsel`` truncation applies only under
+    ``approx``. ``layout`` holds ``low_ranges``, ``post_packed``,
+    ``term_row``, ``impact`` and ``impact_scale``, and may hold
+    ``low_blocks`` and ``low_row``. Callers apply their dead-slot rule."""
+    tensors = (layout["low_ranges"], layout["post_packed"], layout["term_row"],
+               layout["impact"], qtids, k)
+    if sparse_mode == "scatter":
+        return topk_lowscatter(
+            *tensors, beam=beam, approx=approx, impact_scale=layout["impact_scale"],
+            active_rows=active_rows, rows_compact=rows_compact,
+            low_blocks=layout.get("low_blocks"), low_row=layout.get("low_row"))
+    return topk_twotier(
+        *tensors, beam=beam, approx=approx, lsel=lsel if approx else 0,
+        impact_scale=layout["impact_scale"], nonneg=nonneg)
+
+
+def merge_delta_pool(
+    vals: torch.Tensor, idx: torch.Tensor, indptr: torch.Tensor, post_doc: torch.Tensor,
+    post_w: torch.Tensor, qtids: torch.Tensor, k: int, n_docs_cap: int, max_df: int,
+    base_docs: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold a live-ingest delta into a BM25 top-k pool ``(vals, idx)``.
+
+    The delta's docs are few, so ``score_all`` scores all of them over the
+    delta CSR (``index/sparse.py::build_delta_csr``: delta-local docs, the
+    base's frozen statistics); its top-k joins the pool with ids offset by
+    ``base_docs``, and a stable top-k keeps the pool's entry first on equal
+    scores. Returns (scores [B, k], doc positions [B, k]) with the
+    positive-scores contract.
+    """
+    scores = score_all(indptr, post_doc, post_w, qtids, n_docs_cap, max_df)
+    dv, di = topk_from_scores(scores, min(k, n_docs_cap))
+    di = torch.where(di >= 0, di + base_docs, -1)
+    cat_i = torch.cat([idx, di], dim=-1)
+    vals, sel = stable_topk(torch.cat([vals, dv], dim=-1), k)
+    return positive_only(vals, torch.gather(cat_i, -1, sel))

@@ -38,7 +38,8 @@ from rag_uq_tpu_torch.core.config import BM25Config, DenseIndexConfig, EmbedderC
 from rag_uq_tpu_torch.core.mesh import mesh_device, mesh_rank
 from rag_uq_tpu_torch.core.types import Document
 from rag_uq_tpu_torch.embed.base import Embedder, get_embedder
-from rag_uq_tpu_torch.index.sparse import BM25Index, _next_pow2, build_delta_csr
+from rag_uq_tpu_torch.index.sparse import BM25Index, build_delta_csr
+from rag_uq_tpu_torch.index.twotier import next_pow2
 from rag_uq_tpu_torch.parallel.sharding import (
     make_fused_sharded_query,
     make_sharded_bm25_topk,
@@ -47,9 +48,7 @@ from rag_uq_tpu_torch.parallel.sharding import (
     shard_bm25_twotier,
     shard_corpus_matrix,
 )
-from rag_uq_tpu_torch.ops.topk import stable_topk
-from rag_uq_tpu_torch.retrieval.fused import merge_pools
-from rag_uq_tpu_torch.router.model import fuse_hybrid
+from rag_uq_tpu_torch.retrieval.fused import fuse_pools_select
 
 logger = logging.getLogger(__name__)
 
@@ -184,7 +183,7 @@ class ShardedHybridIndex:
 
     def _sync_full(self) -> Dict[str, Any]:
         n = len(self)
-        shard_cap = _next_pow2(max(-(-n // self.n_shards), 1), floor=128)
+        shard_cap = next_pow2(max(-(-n // self.n_shards), 1), floor=128)
         cap = shard_cap * self.n_shards
 
         emb = np.zeros((cap, self.dense_config.embedding_dim), dtype=np.float32)
@@ -339,11 +338,8 @@ class ShardedHybridIndex:
         qterms = {"qtids": self._to_device(np.where(qtids_raw < base_vcap, qtids_raw, -1))}
         fused_state = {
             "emb": state["emb"],
-            "low_ranges": tt["low_ranges"],
-            "post_packed": tt["post_packed"],
-            "term_row": tt["term_row"],
-            "impact": tt["impact"],
-            "impact_scale": tt["impact_scale"],
+            **{name: tt[name] for name in (
+                "low_ranges", "post_packed", "term_row", "impact", "impact_scale")},
             "size": len(self) if delta is None else delta["base_docs"],
         }
         if delta is not None:
@@ -372,7 +368,9 @@ class ShardedHybridIndex:
         """Three-searcher sharded hybrid search: the exact oracle twin.
 
         Exhaustive scatter-add BM25 per shard and the exact dense top-k,
-        merged with the union merge: slower, with no approximation. Always
+        fused as the fused query's tail fuses them
+        (``retrieval/fused.py::fuse_pools_select``, the router over every
+        union column): slower, with no approximation. Always
         runs on a full layout (a pending delta forces the reshard), so it is
         also the fresh-statistics oracle for the delta's bounded staleness.
         """
@@ -389,20 +387,7 @@ class ShardedHybridIndex:
         b = state["bm25"]
         bvals, bidx = bm25_topk(b["indptr"], b["post_doc"], b["post_w"], qtids)
 
-        positions, bm25_scores, dense_scores = merge_pools(
-            bvals, bidx, torch.where(didx >= 0, dvals, 0.0), didx)
-        live = positions >= 0
-        if router is not None:
-            weights = router.module(bm25_scores, dense_scores)
-            hybrid = fuse_hybrid(router.config, weights, bm25_scores, dense_scores)
-        else:
-            max_b = bm25_scores.amax(dim=-1, keepdim=True).clamp(min=1e-12)
-            max_d = dense_scores.amax(dim=-1, keepdim=True).clamp(min=1e-12)
-            hybrid = (bm25_scores / max_b + dense_scores / max_d) / 2.0
-        hybrid = torch.where(live, hybrid, float("-inf"))
-        k = min(top_k, hybrid.shape[-1])
-        vals, sel = stable_topk(hybrid, k)
-        out_pos = torch.gather(positions, -1, sel)
-        dead = torch.isneginf(vals)
-        return (torch.where(dead, 0.0, vals).cpu().numpy(),
-                torch.where(dead, -1, out_pos).cpu().numpy().astype(np.int32))
+        vals, pos = fuse_pools_select(
+            bvals, bidx, torch.where(didx >= 0, dvals, 0.0), didx, top_k,
+            router_module=router.module if router is not None else None)
+        return vals.cpu().numpy(), pos.cpu().numpy().astype(np.int32)

@@ -21,9 +21,13 @@ own device. Each searcher is two plain functions and a callable around them:
 
 The layouts (``*_layout``) are host code that lays out the shards asked for;
 the ``shard_*`` functions lay out the calling rank's shard on its device.
-Per-posting impacts bake in global idf and avgdl, and the dense-term set of
-the two-tier layout comes from global document frequencies, so local scores
-are the single-device scores and the merge is exact.
+The two-tier layout is ``index/twotier.py::bm25_twotier_layout``, the same
+function that lays out ``BM25Index`` on one device. Per-posting impacts bake
+in global idf and avgdl, and the dense-term set of the two-tier layout comes
+from global document frequencies, so local scores are the single-device
+scores and the merge is exact. A shard's BM25 pool and the replicated
+delta's merge are the single-device query's (``ops/bm25.py::twotier_pool``
+and ``merge_delta_pool``).
 
 Every shard's dense pool goes through ``retrieval/fused.py::dense_pool``:
 the CUDA cosine top-k kernel for a tensor on a card, the plain twin on the
@@ -43,9 +47,8 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from rag_uq_tpu_torch.core.device import DeviceLike
 from rag_uq_tpu_torch.core.mesh import gather_shards, mesh_device, mesh_rank
-from rag_uq_tpu_torch.index.sparse import _TORCH_DTYPES, _next_pow2
+from rag_uq_tpu_torch.index.twotier import bm25_twotier_layout, local_twotier
 from rag_uq_tpu_torch.ops import bm25 as bm25_ops
 from rag_uq_tpu_torch.ops.topk import stable_topk
 from rag_uq_tpu_torch.retrieval.fused import dense_pool, fuse_pools_select
@@ -239,129 +242,12 @@ def make_sharded_bm25_topk(mesh: Optional[DeviceMesh], k: int, max_df: int,
 # -- two-tier BM25 -------------------------------------------------------------------
 
 
-def bm25_twotier_layout(
-    csr: Dict[str, Any], n_shards: int, shard_cap: int, config,
-    shards: Optional[Sequence[int]] = None, device: DeviceLike = "cpu",
-) -> Dict[str, Any]:
-    """Per-shard two-tier BM25 layout with global statistics.
-
-    The sharded twin of ``BM25Index._sync_device``'s split: each shard holds
-    the postings of its doc range as (a) a dense ``[T, shard_cap]`` impact
-    matrix of the high-df terms and (b) packed low-tier posting slices. The
-    dense-term set comes from GLOBAL document frequencies (the same
-    ``term_row`` on every shard) under the per-shard ``impact_budget_bytes``,
-    and ``csr`` (``BM25Index.host_csr()``) carries global idf and avgdl, so
-    shard scores equal single-device scores.
-
-    Returns tensors on ``device`` with a leading dim, one per shard in
-    ``shards`` (all by default), the replicated ``term_row``, and the
-    metadata ``beam``, ``nonneg``, ``pcap`` and ``tcap``, which are the same
-    for every shard. bf16 impacts are rounded from f32 to nearest even, as
-    ``ml_dtypes`` rounds them for the JAX package.
-    """
-    shards = range(n_shards) if shards is None else list(shards)
-    dev = torch.device(device)
-    tid_s = np.asarray(csr["tid"], dtype=np.int64)
-    doc_s = np.asarray(csr["doc"], dtype=np.int64)
-    w_s = np.asarray(csr["w"], dtype=np.float64)
-    df = np.asarray(csr["df"], dtype=np.int64)
-    vsize = df.shape[0]
-    vcap = int(_next_pow2(max(vsize, 1), floor=1024))
-    n_post = tid_s.shape[0]
-
-    thresh = config.dense_tier_threshold
-    impact_dtype = _TORCH_DTYPES[config.impact_dtype]
-    itemsize = torch.empty((), dtype=impact_dtype).element_size()
-    max_rows = min(
-        config.max_dense_tier_rows,
-        max(config.impact_budget_bytes // max(shard_cap * itemsize, 1), 8),
-    )
-    if vsize and int((df > thresh).sum()) > max_rows:
-        thresh = int(np.partition(df, -max_rows - 1)[-max_rows - 1])
-    dense_terms = np.nonzero(df > thresh)[0]
-    t_dense = dense_terms.shape[0]
-    tcap = int(_next_pow2(max(t_dense, 1), floor=8))
-    term_row = np.full(vcap, -1, dtype=np.int32)
-    term_row[dense_terms] = np.arange(t_dense, dtype=np.int32)
-    is_dense_term = np.zeros(vcap, dtype=bool)
-    is_dense_term[dense_terms] = True
-
-    shard_of = (doc_s // shard_cap) if n_post else np.zeros(0, np.int64)
-    counts = (
-        np.bincount(shard_of, minlength=n_shards) if n_post else np.zeros(n_shards, np.int64)
-    )
-    pcap = int(_next_pow2(int(counts.max()) if n_post else 1, floor=1024))
-
-    n_out = len(shards)
-    low_ranges = np.zeros((n_out, 2, vcap), dtype=np.int32)
-    packed = np.zeros((n_out, 2, pcap), dtype=np.int32)
-    impact_scale = np.ones((n_out, tcap), dtype=np.float32)
-    impact = torch.zeros((n_out, tcap, shard_cap), dtype=impact_dtype, device=dev)
-
-    for j, s in enumerate(shards):
-        m = shard_of == s
-        t_l = tid_s[m]
-        d_l = doc_s[m] - s * shard_cap  # local row positions
-        w_l = w_s[m]
-        n_l = t_l.shape[0]
-        # The global CSR order (term, then doc) survives the doc-range
-        # filter, so the slices stay term-contiguous.
-        cnt = np.bincount(t_l, minlength=vsize) if n_l else np.zeros(vsize, np.int64)
-        iptr = np.zeros(vsize + 1, dtype=np.int64)
-        np.cumsum(cnt, out=iptr[1:])
-        low_start = np.full(vcap, n_l, dtype=np.int32)
-        low_end = np.full(vcap, n_l, dtype=np.int32)
-        low_start[:vsize] = iptr[:-1]
-        low_end[:vsize] = iptr[1:]
-        low_end[is_dense_term] = low_start[is_dense_term]
-        low_ranges[j, 0] = low_start
-        low_ranges[j, 1] = low_end
-
-        packed[j, 0, :n_l] = d_l.astype(np.int32)
-        packed[j, 1, :n_l] = w_l.astype(np.float32).view(np.int32)
-
-        rows_of = term_row[t_l] if n_l else np.zeros(0, np.int32)
-        mm = rows_of >= 0
-        rows_m, docs_m, w_m = rows_of[mm], d_l[mm], w_l[mm]
-        if config.impact_dtype == "int8":
-            row_max = np.zeros(tcap, dtype=np.float64)
-            if rows_m.size:
-                np.maximum.at(row_max, rows_m, np.abs(w_m))
-            impact_scale[j] = np.maximum(row_max / 127.0, 1e-12).astype(np.float32)
-            vals = torch.from_numpy(
-                np.clip(np.rint(w_m / impact_scale[j][rows_m]), -127, 127).astype(np.int8))
-        else:
-            vals = torch.from_numpy(w_m.astype(np.float32)).to(impact_dtype)
-        impact[j, torch.from_numpy(rows_m).to(dev), torch.from_numpy(docs_m).to(dev)] = (
-            vals.to(dev))
-
-    return {
-        "low_ranges": torch.from_numpy(low_ranges).to(dev),
-        "post_packed": torch.from_numpy(packed).to(dev),
-        "term_row": torch.from_numpy(term_row).to(dev),
-        "impact": impact,
-        "impact_scale": torch.from_numpy(impact_scale).to(dev),
-        "beam": int(_next_pow2(max(thresh, 1), floor=8)),
-        "nonneg": bool(w_s.min() >= 0) if n_post else True,
-        "pcap": pcap,
-        "tcap": tcap,
-    }
-
-
 def shard_bm25_twotier(csr: Dict[str, Any], mesh: DeviceMesh, shard_cap: int,
                        config) -> Dict[str, Any]:
     """This rank's two-tier shard (``bm25_twotier_layout``) on its device,
     without the leading shard dim; ``term_row`` and the metadata as there."""
     return local_twotier(bm25_twotier_layout(csr, mesh.size(), shard_cap, config,
                                              [mesh_rank(mesh)], device=mesh_device(mesh)), 0)
-
-
-def local_twotier(layout: Dict[str, Any], j: int) -> Dict[str, Any]:
-    """Entry ``j`` of a ``bm25_twotier_layout`` in ``shard_bm25_twotier``'s form."""
-    out = dict(layout)
-    for name in ("low_ranges", "post_packed", "impact", "impact_scale"):
-        out[name] = layout[name][j]
-    return out
 
 
 # -- the fused query -------------------------------------------------------------------
@@ -385,19 +271,9 @@ def fused_shard_pools(
     didx = torch.where(didx >= 0, didx + shard * shard_cap, -1)
     dvals = torch.where(didx >= 0, dvals, _NEG)
 
-    if sparse_mode == "scatter":
-        bvals, bidx = bm25_ops.topk_lowscatter(
-            state["low_ranges"], state["post_packed"], state["term_row"], state["impact"],
-            qterms["qtids"], k_local, beam=beam, approx=approx_topk,
-            impact_scale=state["impact_scale"],
-        )
-    else:
-        bvals, bidx = bm25_ops.topk_twotier(
-            state["low_ranges"], state["post_packed"], state["term_row"], state["impact"],
-            qterms["qtids"], k_local, beam=beam, approx=approx_topk,
-            lsel=lsel if approx_topk else 0, impact_scale=state["impact_scale"],
-            nonneg=nonneg,
-        )
+    bvals, bidx = bm25_ops.twotier_pool(
+        state, qterms["qtids"], k_local, beam=beam, sparse_mode=sparse_mode,
+        approx=approx_topk, lsel=lsel, nonneg=nonneg)
     blive = (bvals > 0.0) & (bidx >= 0)
     bvals = torch.where(blive, bvals, _NEG)
     bidx = torch.where(blive, bidx + shard * shard_cap, -1)
@@ -429,20 +305,9 @@ def fused_merge(
         dvals, sel = stable_topk(cat_v, pool)
         didx = torch.gather(cat_i, -1, sel)
 
-        dscores = bm25_ops.score_all(
-            state["delta_indptr"], state["delta_post_doc"], state["delta_post_w"],
-            qterms["qtids_full"], delta_cap, delta_max_df,
-        )
-        bv2, bi2 = bm25_ops.topk_from_scores(dscores, k_delta)
-        blive2 = (bv2 > 0.0) & (bi2 >= 0)
-        bv2 = torch.where(blive2, bv2, 0.0)
-        bi2 = torch.where(blive2, bi2 + state["delta_base_docs"], -1)
-        cat_v = torch.cat([bvals, bv2], dim=-1)
-        cat_i = torch.cat([bidx, bi2], dim=-1)
-        bvals, sel = stable_topk(cat_v, pool)
-        bidx = torch.gather(cat_i, -1, sel)
-        bidx = torch.where(bvals > 0.0, bidx, -1)
-        bvals = torch.where(bvals > 0.0, bvals, 0.0)
+        bvals, bidx = bm25_ops.merge_delta_pool(
+            bvals, bidx, state["delta_indptr"], state["delta_post_doc"], state["delta_post_w"],
+            qterms["qtids_full"], pool, delta_cap, delta_max_df, state["delta_base_docs"])
 
     return fuse_pools_select(bvals, bidx, dvals, didx, k, router_module=router_module,
                              router_width=router_width)

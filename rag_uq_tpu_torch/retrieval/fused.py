@@ -3,10 +3,12 @@
 One function from query vectors and term ids to the final top-k:
 
     dense top-pool      the cosine top-k kernel (CUDA) or its plain twin
-    sparse top-pool     ``ops/bm25.py::topk_twotier`` (the default),
-                        ``topk_lowscatter`` (scatter mode), or the exhaustive
-                        ``score_all`` oracle (exact_bm25); a live-ingest
-                        delta is scored exhaustively and merged in
+    sparse top-pool     ``ops/bm25.py::twotier_pool`` over the two-tier
+                        layout of ``index/twotier.py``: ``topk_twotier``
+                        (the default) or ``topk_lowscatter`` (scatter mode);
+                        or the exhaustive ``score_all`` oracle (exact_bm25);
+                        a live-ingest delta is scored exhaustively and
+                        merged in (``ops/bm25.py::merge_delta_pool``)
     union merge         equality-matrix join; missing scores are 0.0
     fusion              the learned router's gate, or the reference's fixed
                         mean-of-max-normalized fusion
@@ -16,7 +18,9 @@ The dense pool on a CUDA tensor always goes through the kernel
 (``ops/cosine_topk.py``), whatever exact ``dense_mode`` is named; on a CPU
 tensor "stream" is the block-streamed twin and every other mode the single
 product. Every sort that decides an order is stable, so ties resolve as
-``lax.top_k`` and the numpy eval protocol resolve them.
+``lax.top_k`` and the numpy eval protocol resolve them. The sharded query
+(``parallel/sharding.py``) takes its shards' pools, its delta merge and its
+tail through the same functions.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from rag_uq_tpu_torch.index.twotier import next_pow2
 from rag_uq_tpu_torch.ops import bm25 as bm25_ops
 from rag_uq_tpu_torch.ops.cosine_topk import cuda_cosine_topk
 from rag_uq_tpu_torch.ops.topk import cosine_topk, cosine_topk_single, stable_topk
@@ -232,56 +237,25 @@ def make_fused_hybrid_query(
                 )
 
     def _bm25_pool(state: Dict[str, Any], qterms: Dict[str, torch.Tensor]):
-        emb = state["emb"]
         if exact_bm25:
             all_scores = bm25_ops.score_all(
                 state["indptr"], state["post_doc"], state["post_w"],
-                qterms["qtids"], emb.shape[0], max_df,
+                qterms["qtids"], state["emb"].shape[0], max_df,
             )
             return bm25_ops.topk_from_scores(all_scores, pool)
-        if sparse_mode == "scatter":
-            bvals, bidx = bm25_ops.topk_lowscatter(
-                state["low_ranges"], state["post_packed"],
-                state["term_row"], state["impact"],
-                qterms["qtids_base"], pool, beam=beam, approx=approx_topk,
-                impact_scale=state["impact_scale"],
-                active_rows=qterms.get("active_rows"),
-                rows_compact=qterms.get("rows_compact"),
-                low_blocks=state.get("low_blocks"),
-                low_row=state.get("low_row"),
-            )
-        else:
-            bvals, bidx = bm25_ops.topk_twotier(
-                state["low_ranges"], state["post_packed"],
-                state["term_row"], state["impact"],
-                qterms["qtids_base"], pool, beam=beam, approx=approx_topk,
-                lsel=lsel if approx_topk else 0,
-                impact_scale=state["impact_scale"], nonneg=nonneg,
-            )
+        bvals, bidx = bm25_ops.twotier_pool(
+            state, qterms["qtids_base"], pool, beam=beam, sparse_mode=sparse_mode,
+            approx=approx_topk, lsel=lsel, nonneg=nonneg,
+            active_rows=qterms.get("active_rows"), rows_compact=qterms.get("rows_compact"))
         if "delta_indptr" in state:
-            # Live-ingest delta: score the recently added docs
-            # exhaustively (few) and merge them into the BM25 pool.
-            dscores = bm25_ops.score_all(
-                state["delta_indptr"], state["delta_post_doc"],
-                state["delta_post_w"], qterms["qtids"], delta_cap, delta_max_df,
-            )
-            dv, di = bm25_ops.topk_from_scores(dscores, min(pool, delta_cap))
-            di = torch.where(di >= 0, di + state["delta_base_docs"], -1)
-            cat_v = torch.cat([bvals, dv], dim=-1)
-            cat_i = torch.cat([bidx, di], dim=-1)
-            bvals, sel = stable_topk(cat_v, pool)
-            bidx = torch.gather(cat_i, -1, sel)
-        dead = bvals <= 0.0
-        return torch.where(dead, 0.0, bvals), torch.where(dead, -1, bidx)
+            # Live-ingest delta: the recently added docs, merged in.
+            return bm25_ops.merge_delta_pool(
+                bvals, bidx, state["delta_indptr"], state["delta_post_doc"],
+                state["delta_post_w"], qterms["qtids"], pool, delta_cap, delta_max_df,
+                state["delta_base_docs"])
+        return bm25_ops.positive_only(bvals, bidx)
 
     return fused
-
-
-def _next_pow2_host(n: int, floor: int = 1) -> int:
-    p = floor
-    while p < n:
-        p <<= 1
-    return p
 
 
 def encode_for_fused(
@@ -314,7 +288,7 @@ def encode_for_fused(
                 safe = np.where(qtids_base >= 0, qtids_base, 0)
                 rows = np.where(qtids_base >= 0, host_term_row[safe], -1)
                 uniq = np.unique(rows[rows >= 0])
-                ta_cap = int(_next_pow2_host(max(uniq.shape[0], 1), floor=64))
+                ta_cap = next_pow2(max(uniq.shape[0], 1), floor=64)
                 profiling.count("bm25.high_rows_active", uniq.shape[0])
                 profiling.count("bm25.high_rows_padded", ta_cap)
                 active = np.zeros(ta_cap, dtype=np.int32)

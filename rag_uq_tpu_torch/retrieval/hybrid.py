@@ -2,7 +2,11 @@
 
 BM25 and dense indices on one device; the batched fused query over both
 (``retrieval/fused.py``), whose default ``sparse_mode="twotier"`` is the JAX
-package's, served from a live delta when ``delta_sync_fraction > 0``; and the
+package's, served from a live delta when ``delta_sync_fraction > 0``. The
+BM25 index lays out its two-tier format with
+``index/twotier.py::bm25_twotier_layout``; the fused query takes its BM25
+pool through ``ops/bm25.py::twotier_pool`` (the one-hot product in
+``high_tier``) and merges the delta with ``merge_delta_pool``. Also the
 reference-parity paths: the union pool with exact rescoring
 (``pooled_scores_batch``), ``hybrid_search``, ``get_scores_for_router`` and
 its batched form. With ``bm25_persist_path``/``dense_persist_directory`` the
