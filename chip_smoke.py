@@ -71,7 +71,13 @@ Phases, each printing one line "phase <name> ok <seconds>":
            with seeded random weights) answering three 2048-query requests
            and one single query; the hits must be well formed and find their
            source passage far above chance, and the fused query rerun with
-           the plain dense twin must agree under the tie rule;
+           the plain dense twin must agree under the tie rule; the BM25
+           pools timed, and the high tier's product (ops/bm25.py::high_tier,
+           16 x 16 -> f32 on the tensor cores) held to the f32 product of
+           the same one-hot, within 1e-6 of each row's maximum, at this
+           index's shape and at fiqa.batch's (B = 2048, 4,096 active rows of
+           65,536 docs), both timed with CUDA events and the GEMM's kernel
+           named from torch.profiler;
   twotier  the same index behind QueryService(sparse_mode="twotier"), three
            2048-query requests: the same recall gate, the two-tier BM25 pool
            against the scatter pool and the served hits against the scatter
@@ -1004,7 +1010,77 @@ def stage_times(retriever, router, queries) -> dict:
         f"fused query {t_fused:.4f} s (scatter) / {t_fused_twotier:.4f} s (twotier); "
         f"BM25 pool {t_bm25:.4f} s (scatter) / {t_twotier:.4f} s (twotier, impact "
         f"{tuple(dev['impact'].shape)} {dev['impact'].dtype}, beam {dev['beam']})")
-    return {"scatter_pool_s": t_bm25, "twotier_pool_s": t_twotier}
+    rows = qterms["active_rows"].long()
+    high = {"slice": high_product_check(
+        state["impact"][rows], qterms["qtids_base"], state["term_row"],
+        state["impact_scale"][rows], qterms["rows_compact"], "this index")}
+    # fiqa.batch's shape: B = 2048 queries of up to 32 slots over 4,096 of
+    # its impact rows of 65,536 docs, seeded sparse bf16 impacts.
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    t_act, n_fiqa = 4096, 65536
+    impact = torch.rand((t_act, n_fiqa), generator=gen, device="cuda") * 6.0
+    impact = torch.where(torch.rand((t_act, n_fiqa), generator=gen, device="cuda") < 0.05,
+                         impact, 0.0).to(torch.bfloat16)
+    slots = torch.randint(0, t_act, (BATCH, 32), generator=gen, device="cuda")
+    dead = torch.rand((BATCH, 32), generator=gen, device="cuda") < 0.6
+    high["fiqa"] = high_product_check(
+        impact, torch.zeros((BATCH, 32), dtype=torch.int32, device="cuda"),
+        state["term_row"], None, torch.where(dead, -1, slots).to(torch.int32), "fiqa.batch")
+    return {"scatter_pool_s": t_bm25, "twotier_pool_s": t_twotier, "high_product": high}
+
+
+HIGH_PRODUCT_RTOL = 1e-6  # of a row's maximum: the sums of <= 32 exact terms, reordered
+
+
+def high_product_check(impact, qtids, term_row, impact_scale, rows_compact, what) -> dict:
+    """high_tier's product on the card (16 x 16 -> f32 on the tensor cores,
+    into scatter_totals' aligned rows) against the f32 product of the same
+    one-hot (the CPU's route, and the route before: widen both operands,
+    then the f32 GEMM; library_ms), within HIGH_PRODUCT_RTOL of each row's
+    maximum. Times both products and the whole of high_tier with CUDA
+    events, and names the tensor-core GEMM's kernel (torch.profiler)."""
+    nq, n = qtids.shape[0], impact.shape[1]
+    onehot = fused_mod.bm25_ops.high_onehot(impact, qtids, term_row, impact_scale, rows_compact)
+    impact = impact.to(onehot.dtype)
+    tc_total = fused_mod.bm25_ops.scatter_totals(nq, n, "cuda")
+    f32_total = fused_mod.bm25_ops.scatter_totals(nq, n, "cuda")
+
+    def tc():
+        return torch.mm(onehot, impact, out_dtype=torch.float32, out=tc_total[:, :n])
+
+    def f32():
+        return torch.matmul(onehot.float(), impact.float(), out=f32_total[:, :n])
+
+    def whole():
+        return fused_mod.bm25_ops.high_tier(impact, qtids, term_row, impact_scale, rows_compact,
+                                  out=tc_total[:, :n])
+
+    profiling.enable()
+    try:
+        profiling.take()  # zero the counters
+        got = whole()
+        taken = profiling.take()["counters"].get("bm25.high_product_tc", 0)
+    finally:
+        profiling.disable()
+    want = f32()
+    rowmax = want.abs().amax(dim=1, keepdim=True)
+    err = float(((got - want).abs() / rowmax.clamp(min=1e-30)).max())
+    if err > HIGH_PRODUCT_RTOL or taken != 1:
+        raise AssertionError(f"high-tier product at {what}: tensor cores vs f32 {err:.3e} of "
+                             f"the row maximum (limit {HIGH_PRODUCT_RTOL:.0e}); "
+                             f"bm25.high_product_tc {taken}, not 1")
+    # A short capture can come back without device events (seen after the
+    # mla phase's profiling): the name is then reported as missing.
+    heavy = profiled(lambda: [tc() for _ in range(3)], top=1)[3]
+    kernel = heavy[0][0] if heavy else "kernel not recorded by torch.profiler"
+    out = {"shape": [nq, onehot.shape[1], n], "max_rel_err": err,
+           "tc_ms": cuda_ms(tc, 10), "library_ms": cuda_ms(f32, 5),
+           "high_tier_ms": cuda_ms(whole, 10), "kernel": kernel}
+    log(f"  high-tier product at {what}, [B, T] x [T, N] = {out['shape']}: tensor cores "
+        f"{out['tc_ms']:.4f} ms ({kernel}), high_tier whole {out['high_tier_ms']:.4f} ms, "
+        f"f32 with its widening (library_ms) {out['library_ms']:.4f} ms; max |diff| "
+        f"{err:.3e} of the row maximum")
+    return out
 
 
 def scatter_pool(state, qterms, dev):
@@ -2726,6 +2802,7 @@ def main() -> int:
     row["train_phase"] = train
     large_row["launches"] = large_launches  # the persist path's k = 1000 searches
     row["bm25_pool_s"] = {"scatter": ctx["scatter_pool_s"], "twotier": ctx["twotier_pool_s"]}
+    row["bm25_high_product"] = ctx["high_product"]
     print(json.dumps({"kernels": [row, large_row, mla_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"], "count": torch.cuda.device_count(),

@@ -16,7 +16,7 @@ as its own call, plus the full query at several batch sizes:
   the served scatter pool's parts, through the functions of
   ``ops/bm25.py`` that ``topk_lowscatter`` runs: the active-row gather of
   the impact matrix, the high-tier product (``high_tier``: the one-hot and
-  the f32 product), the low-tier block gather (``block_postings``) with its
+  the product), the low-tier block gather (``block_postings``) with its
   scatter-add, and the top-k over the ``[B, N]`` totals;
 - the union merge, router gate and final top-k (``fuse_pools_select``).
 
@@ -194,7 +194,7 @@ def run_profile(
     impact, act = state["impact"], qterms["active_rows"].long()
     stage("bm25_active_row_gather", lambda: impact[act])
     sub_impact, sub_scale = impact[act], state["impact_scale"][act]
-    total = torch.zeros((batch, ncap + 1), dtype=torch.float32, device=dev)
+    total = bm25_ops.scatter_totals(batch, ncap, dev)
     stage("bm25_high_tier_matmul_compact", lambda: bm25_ops.high_tier(
         sub_impact, qtids, state["term_row"], sub_scale, rows_compact=qterms["rows_compact"],
         out=total[:, :ncap]))

@@ -19,7 +19,7 @@ count once per occurrence, as in ``rank_bm25``'s ``get_scores``. Top-k takes
 value descending, then lowest doc, as ``lax.top_k`` does.
 
 ``scatter_add_`` has no ``mode="drop"`` (``ops/bm25.py:369-372,418``), so
-the totals carry one spare column that the out-of-range padding entries
+the totals carry a spare column that the out-of-range padding entries
 (doc = ``n_docs_cap``, ``index/sparse.py:436-438``) land in, and the column
 is sliced off before the top-k.
 """
@@ -31,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from rag_uq_tpu_torch.ops.topk import stable_topk
+from rag_uq_tpu_torch.utils import profiling
 
 
 def _term_ranges(
@@ -100,26 +101,24 @@ def score_docs(
 _DOC_SENTINEL = torch.iinfo(torch.int32).max
 
 
-def high_tier(
+def high_onehot(
     impact: torch.Tensor,  # [T, N] impact rows: all of them, or the batch's active rows
     qtids: torch.Tensor,  # [B, Lq]
     term_row: torch.Tensor,  # [Vcap] -> dense-tier row id or -1
     impact_scale: Optional[torch.Tensor] = None,  # [T] per-row int8 scales
     rows_compact: Optional[torch.Tensor] = None,  # [B, Lq] row of ``impact`` or -1
-    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The high tier's f32 totals ``[B, N]``: a query one-hot (repeated terms
-    counted) times the impact rows.
+    """The high tier's query one-hot ``[B, T]`` (repeated terms counted), in
+    the impacts' dtype (bf16 for int8 impacts).
 
     Without ``rows_compact`` each query slot's row is its term's
     ``term_row``, the one-hot counts ones and the int8 row scales multiply
     its columns after. With ``rows_compact`` ``impact`` holds the batch's
     active rows only, and each slot adds its row's scale in the one-hot's
     dtype. The two can round differently for a term repeated four or more
-    times, as in the JAX package. The one-hot and impacts are bf16 values (or
-    int8 promoted to bf16, as on the TPU); their products are exact in f32,
-    so the f32 product matches the TPU's bf16 x bf16 -> f32 product up to
-    the order of its short sums.
+    times, as in the JAX package. Rows are padded to a multiple of 8
+    columns, so that the row stride keeps the 16-byte alignment the card's
+    tensor-core GEMMs want.
     """
     t = impact.shape[0]
     nq = qtids.shape[0]
@@ -135,13 +134,41 @@ def high_tier(
         weight, scale = torch.ones(slot.shape, dtype=onehot_dtype, device=dev), impact_scale
     # Dead slots go to a spare column t that is dropped after.
     col = torch.where(slot >= 0, slot, t).long()
-    onehot = torch.zeros((nq, t + 1), dtype=onehot_dtype, device=dev)
+    onehot = torch.zeros((nq, t // 8 * 8 + 8), dtype=onehot_dtype, device=dev)
     b_ix = torch.arange(nq, device=dev)[:, None]
     onehot.index_put_((b_ix.expand_as(col), col), weight.to(onehot_dtype), accumulate=True)
     onehot = onehot[:, :t]
     if scale is not None:
-        onehot = onehot * scale.to(onehot_dtype)[None, :]
-    return torch.matmul(onehot.float(), impact.to(onehot_dtype).float(), out=out)
+        onehot.mul_(scale.to(onehot_dtype)[None, :])
+    return onehot
+
+
+def high_tier(
+    impact: torch.Tensor,  # [T, N] impact rows: all of them, or the batch's active rows
+    qtids: torch.Tensor,  # [B, Lq]
+    term_row: torch.Tensor,  # [Vcap] -> dense-tier row id or -1
+    impact_scale: Optional[torch.Tensor] = None,  # [T] per-row int8 scales
+    rows_compact: Optional[torch.Tensor] = None,  # [B, Lq] row of ``impact`` or -1
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The high tier's f32 totals ``[B, N]``: ``high_onehot`` times the
+    impact rows.
+
+    The one-hot and impacts are bf16 values (or int8 promoted to bf16, as on
+    the TPU); their products are exact in f32. On a card a 16-bit one-hot is
+    multiplied as it is, 16 x 16 -> f32 on the tensor cores (counted as
+    ``bm25.high_product_tc``), as the TPU's ``preferred_element_type``
+    product; the CPU has no such product, so there both operands are widened
+    to f32. The two differ only in the order of each total's short sums (at
+    most ``Lq`` nonzero terms). ``out``'s rows should be 16-byte aligned
+    too (``scatter_totals``).
+    """
+    onehot = high_onehot(impact, qtids, term_row, impact_scale, rows_compact)
+    impact = impact.to(onehot.dtype)
+    if onehot.is_cuda and onehot.dtype != torch.float32:
+        profiling.count("bm25.high_product_tc")
+        return torch.mm(onehot, impact, out_dtype=torch.float32, out=out)
+    return torch.matmul(onehot.float(), impact.float(), out=out)
 
 
 def posting_slices(
@@ -243,8 +270,8 @@ def topk_twotier(
     and one top-k runs over the totals. ``lsel > 0`` keeps only the ``lsel``
     largest low-tier sums (an approximation the callers take only with
     ``approx``). ``approx=True`` (``lax.approx_max_k``) has no PyTorch
-    counterpart: every top-k here is exact. The high-tier product is taken
-    in f32 from the storage-dtype values, as in ``topk_lowscatter``.
+    counterpart: every top-k here is exact. The high-tier product is
+    ``high_tier``'s, as in ``topk_lowscatter``.
     Returns (scores [B, k], doc positions [B, k]); callers apply the
     positive-scores-only contract.
     """
@@ -275,6 +302,13 @@ def topk_twotier(
     docs = torch.gather(cat_i, -1, sel)
     dead = torch.isneginf(vals)
     return torch.where(dead, 0.0, vals), torch.where(dead, -1, docs).to(torch.int32)
+
+
+def scatter_totals(nq: int, ncap: int, device) -> torch.Tensor:
+    """Zeroed f32 totals ``[nq, ncap + 4]`` for the scatter pool: column
+    ``ncap`` is the spare one, and rows of ``ncap + 4`` floats keep the
+    high-tier product's output rows 16-byte aligned (``high_tier``)."""
+    return torch.zeros((nq, ncap + 4), dtype=torch.float32, device=device)
 
 
 def topk_lowscatter(
@@ -309,7 +343,7 @@ def topk_lowscatter(
     del approx
     ncap = impact.shape[1]
     nq = qtids.shape[0]
-    total = torch.zeros((nq, ncap + 1), dtype=torch.float32, device=qtids.device)
+    total = scatter_totals(nq, ncap, qtids.device)
     if active_rows is not None and rows_compact is not None:
         rows = active_rows.long()
         high_tier(impact[rows], qtids, term_row,
@@ -326,6 +360,7 @@ def topk_lowscatter(
         docs = torch.where(ok, docs, 0).reshape(nq, -1)  # masked -> add 0.0
         w = torch.where(ok, w, 0.0).reshape(nq, -1)
     total.scatter_add_(1, docs.long(), w)
+    del docs, w  # freed before the sort, whose buffers set the pool's peak memory
     vals, idx = stable_topk(total[:, :ncap], k)
     return vals, idx.to(torch.int32)
 

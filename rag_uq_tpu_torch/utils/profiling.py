@@ -62,6 +62,9 @@ Spans (where; clock):
 
 Counters: ``bm25.high_rows_active`` and ``bm25.high_rows_padded`` (a scatter
 batch's distinct high-tier rows and the rows its product runs over);
+``bm25.high_product_tc`` (high-tier products taken 16 x 16 -> f32 on the
+card's tensor cores, one a pool call there; the CPU's f32 product counts
+none, ``ops/bm25.py::high_tier``);
 ``embed.hash_native`` and ``embed.hash_python`` (texts whose hashed features
 the native library computed, and texts the Python twin hashed because the
 library did not load, in ``text/tokenize.py::hash_texts``, which
