@@ -6,14 +6,16 @@ Usage, from the root of a checkout:  python3 chip_smoke.py [--seed N]
 Phases, each printing one line "phase <name> ok <seconds>":
 
   device   a CUDA card is required (the script fails without one);
-  build    the three CUDA libraries (the heap kernel csrc/cosine_topk.cu and
+  build    the four CUDA libraries (the heap kernel csrc/cosine_topk.cu and
            the large-k kernels csrc/cosine_topk_large.cu, one nvcc each,
            started together, then the latent-attention decode kernel
-           csrc/mla_decode.cu) and the native tokenizer (g++), from the
-           sources in the checkout, into build/rag_uq_tpu_torch/; prints the
-           compiler's registers, spills and shared memory, and the counts of
-           HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
-           library's SASS, and fails if either is zero in any;
+           csrc/mla_decode.cu and the KDA decode kernel csrc/kda_decode.cu)
+           and the native tokenizer (g++), from the sources in the checkout,
+           into build/rag_uq_tpu_torch/; prints the compiler's registers,
+           spills and shared memory, and the counts of HGMMA (wgmma) and
+           UTMALDG (TMA load) instructions in each of the first three
+           libraries' SASS, and fails if either is zero in any (the KDA
+           kernel, bound by its state's bytes, uses neither);
   kernel   the heap kernel against its plain PyTorch twin on the card: the
            edge cases of tests/test_pallas_topk.py, then at the main path's
            shapes B = 2048 and 1, k = 128 and MAX_K, a ragged query tile, a
@@ -66,6 +68,16 @@ Phases, each printing one line "phase <name> ok <seconds>":
            card's ms a decode step with the card idle before each, the host's
            as the generator runs, and the host's ms of a layer's attention
            and expert layer;
+  kda      the KDA decode kernel (ops/kda.py's cuda_kda_decode) against its
+           plain twin and a float64 evaluation of the same inputs at
+           KDA_SHAPES: the kimilinear.mc_answer cell's step (320 slots, 32
+           heads of 128) and the edges (one slot; 7 slots of 2 heads): its
+           output's error within 1.25x the twin's, its new state within
+           1e-5 of the state's RMS, the conv tail moved as the twin moves
+           it; at the cell's shape the kernel (CUDA events), its bound and
+           the twin (cli/profile_kda_decode.py's measure); and the
+           latent-attention kernel at the cell's 32 heads (t = 0, 49, 98),
+           within mla.ERR_MARGIN of its twin;
   slice    a 100k-passage index at bench.py's shape behind a QueryService
            (max_batch 2048, scatter-mode BM25, a pool7/maxnorm/binary router
            with seeded random weights) answering three 2048-query requests
@@ -250,6 +262,7 @@ from rag_uq_tpu_torch.cli import evaluate as evaluate_cli
 from rag_uq_tpu_torch.cli import parity as parity_cli
 from rag_uq_tpu_torch.cli import parity_e2e as parity_e2e_cli
 from rag_uq_tpu_torch.cli import profile_fused as profile_fused_cli
+from rag_uq_tpu_torch.cli import profile_kda_decode as profile_kda_cli
 from rag_uq_tpu_torch.cli import profile_mla_decode as profile_mla_cli
 from rag_uq_tpu_torch.cli import run_pipeline as run_pipeline_cli
 from rag_uq_tpu_torch.cli import serve as serve_mod
@@ -281,6 +294,7 @@ from rag_uq_tpu_torch.llm.train import (
 )
 from rag_uq_tpu_torch.native import binding as native_binding
 from rag_uq_tpu_torch.ops import cosine_topk as ck
+from rag_uq_tpu_torch.ops import kda
 from rag_uq_tpu_torch.ops import mla_decode as mla
 from rag_uq_tpu_torch.parallel import sharding
 from rag_uq_tpu_torch.parallel.sharded_index import ShardedHybridIndex
@@ -317,6 +331,8 @@ MLA_SHAPES = (
        ("ragged_not_64", [1101, 77, 650], 10, 16, 5), ("one_token", [1, 1300], 10, 16, 3),
        ("heads_128", [1000, 513], 2, 128, 30)])
 MLA_TIMED_T = (0, 49, 98)
+# The KDA phase: (name, slots, heads) of the kimilinear.mc_answer step and the edges.
+KDA_SHAPES = (("cell", 320, 32), ("one_slot", 1, 32), ("two_heads", 7, 2))
 MLA_MAX_TOKENS = 100
 KERNEL_ATOL = 1e-3  # kernel vs plain twin: f32 sums of bf16 products, other order
 F32_ATOL = 1e-5  # f32 corpus: f32 FMA products on both sides (no TF32), other order
@@ -494,7 +510,10 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     decode = mla.build()
     log(f"  latent-attention decode library built in {time.perf_counter() - t0:.2f}s")
-    for lib in (built, large, decode):
+    t0 = time.perf_counter()
+    recurrent = kda.build()
+    log(f"  KDA decode library built in {time.perf_counter() - t0:.2f}s")
+    for lib in (built, large, decode, recurrent):
         log(f"  nvcc {lib.path.name}: {lib.seconds:.2f}s")
         for line in lib.log.splitlines():
             if "Used" in line or "spill" in line or "smem" in line or "entry function" in line:
@@ -698,6 +717,44 @@ def phase_mla(seed: int) -> dict:
         "call_s": call_s, "decode_steps": steps, "launches": launches, "step": step,
         "cases": cases,
     }
+
+def phase_kda(seed: int) -> dict:
+    """The KDA decode kernel against its plain twin and float64 at
+    KDA_SHAPES, timed at the cell's shape; the latent-attention kernel at
+    the Kimi Linear cell's 32 heads."""
+    cases = []
+    for name, rows, heads in KDA_SHAPES:
+        args_t = profile_kda_cli.inputs(rows, heads, seed + rows, "cuda")
+        err = profile_kda_cli.errors(args_t)
+        log(f"  kda_decode {name} ({rows} slots, {heads} heads): {json.dumps(err)}")
+        if err["kernel_err"] > 1.25 * err["plain_err"] + 1e-6 \
+                or err["kernel_state_err"] > 1e-5 or not err["tail_equal"]:
+            raise AssertionError(f"kda_decode {name}: {err}")
+        cases.append({"shape": name, "rows": rows, "heads": heads, **err})
+        if name == "cell":
+            row = profile_kda_cli.measure(args_t)
+            log(f"  kda_decode cell: kernel {row['kernel_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['roofline_pct']:.1f}%), plain "
+                f"{row['plain_ms']:.4f} ms")
+            cases[-1].update({k: row[k] for k in ("kernel_ms", "bound_ms", "plain_ms")})
+        del args_t
+    lens = profile_mla_cli.cell_lens(32, seed)
+    mla32 = []
+    for t in MLA_TIMED_T:
+        args_t = (*profile_mla_cli.inputs(lens, 10, 32, MLA_MAX_TOKENS, seed + t, "cuda"), t,
+                  10, 192 ** -0.5, mla.RANK)
+        err = profile_mla_cli.errors(args_t)
+        log(f"  mla_decode at 32 heads t={t}: kernel {err['kernel_err']:.5f}, plain twin "
+            f"{err['plain_err']:.5f}")
+        if err["kernel_err"] > mla.ERR_MARGIN * err["plain_err"]:
+            raise AssertionError(f"mla_decode at 32 heads t={t}: {err}")
+        mla32.append({"t": t, **err})
+    torch.cuda.empty_cache()
+    cell = cases[0]
+    return {"name": "kda_decode", "route": "cuda", "source": "rag_uq_tpu_torch/csrc/kda_decode.cu",
+            "replaces": None, "kernel_ms": cell["kernel_ms"], "bound_ms": cell["bound_ms"],
+            "plain_ms": cell["plain_ms"], "cases": cases, "mla_32_heads": mla32}
+
 
 def same_merge(mv, mi, part_v, part_i, k: int, what: str) -> None:
     """The merge pass's result equals merge_plain's on the same lists, the
@@ -2739,6 +2796,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("mla"):
         mla_row = phase_mla(args.seed)
+    with phase("kda"):
+        kda_row = phase_kda(args.seed)
     with phase("slice"):
         ctx = phase_slice(args.seed, device["name"])
     with phase("twotier"):
@@ -2803,7 +2862,7 @@ def main() -> int:
     large_row["launches"] = large_launches  # the persist path's k = 1000 searches
     row["bm25_pool_s"] = {"scatter": ctx["scatter_pool_s"], "twotier": ctx["twotier_pool_s"]}
     row["bm25_high_product"] = ctx["high_product"]
-    print(json.dumps({"kernels": [row, large_row, mla_row]}), flush=True)
+    print(json.dumps({"kernels": [row, large_row, mla_row, kda_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"], "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -46,6 +46,13 @@ expert's product over its group as one grouped product a weight matrix
 (``torch._grouped_mm`` with the groups' ends as offsets): no loop over
 tokens or experts, no padding, and nothing read back to the host.
 
+The layer loop, the latent attention's paths and cache, the expert layer,
+``Capture``, ``_Samples`` and the generate loop also serve Kimi Linear
+(``llm/kimi_linear.py``), which adds to them what DeepSeek-V2-Lite does not
+use: latent attention without rope (``cos`` None), a sigmoid gate with a
+correction bias (a layer's ``score_bias``), and an expert share (``held``:
+the layer routes over all experts and computes its own experts' pairs).
+
 Weights carry the published checkpoint's names (``published()``); the
 experts are stored stacked (``w13`` [E, hidden, 2 * width] and ``w2`` [E,
 width, hidden]) and each published expert tensor is a view into them, so
@@ -245,31 +252,49 @@ def is_norm(name: str) -> bool:
 
 # -- the model ------------------------------------------------------------------------
 
+def init_mla(layer, cfg, e) -> None:
+    """Latent attention's tensors on ``layer`` (``e(*shape)`` allocates one),
+    with the absorbed views ``w_uk`` and ``w_uv_t`` of ``kv_b``."""
+    h, nh = cfg.hidden_size, cfg.num_attention_heads
+    r, nope, v = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.v_head_dim
+    layer.q_proj = e(nh * cfg.qk_head_dim, h)
+    layer.kv_a = e(cfg.latent_dim, h)
+    layer.kv_norm = e(r)
+    layer.kv_b = e(nh * (nope + v), r)
+    layer.o_proj = e(h, nh * v)
+    per_head = layer.kv_b.view(nh, nope + v, r)
+    layer.w_uk = per_head[:, :nope]                   # [nh, nope, r]
+    layer.w_uv_t = per_head[:, nope:].transpose(1, 2)  # [nh, r, v]
+
+
+def init_experts(layer, routed: int, held: int, hidden: int, width: int, shared: int,
+                 e) -> None:
+    """An expert layer's tensors on ``layer``: the gate over all ``routed``
+    experts, the ``held`` experts stacked (``w13`` [held, hidden, 2 *
+    width], ``w2`` [held, width, hidden]) and the shared experts as one MLP
+    ``shared`` wide."""
+    layer.gate = e(routed, hidden)
+    layer.gate_f32 = None
+    layer.score_bias = None  # a sigmoid router's correction bias [routed] f32
+    layer.w13 = e(held, hidden, 2 * width)
+    layer.w2 = e(held, width, hidden)
+    layer.w_gate_up, layer.w_down = e(2 * shared, hidden), e(hidden, shared)
+
+
 class _Layer:
     """One decoder layer's tensors (no autograd)."""
 
+    mixer = "mla"  # the device range of its attention block
+
     def __init__(self, cfg: DeepseekV2Config, i: int, dt: torch.dtype, dev: torch.device):
-        h, nh = cfg.hidden_size, cfg.num_attention_heads
-        r, nope, v = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.v_head_dim
+        h = cfg.hidden_size
         e = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
         self.moe = cfg.is_moe(i)
         self.ln_in, self.ln_post = e(h), e(h)
-        self.q_proj = e(nh * cfg.qk_head_dim, h)
-        self.kv_a = e(cfg.latent_dim, h)
-        self.kv_norm = e(r)
-        self.kv_b = e(nh * (nope + v), r)
-        self.o_proj = e(h, nh * v)
-        per_head = self.kv_b.view(nh, nope + v, r)
-        self.w_uk = per_head[:, :nope]                   # [nh, nope, r]
-        self.w_uv_t = per_head[:, nope:].transpose(1, 2)  # [nh, r, v]
+        init_mla(self, cfg, e)
         if self.moe:
             n, w = cfg.n_routed_experts, cfg.moe_intermediate_size
-            self.gate = e(n, h)
-            self.gate_f32 = None
-            self.w13 = e(n, h, 2 * w)
-            self.w2 = e(n, w, h)
-            ws = w * (cfg.n_shared_experts or 0)
-            self.w_gate_up, self.w_down = e(2 * ws, h), e(h, ws)
+            init_experts(self, n, n, h, w, w * (cfg.n_shared_experts or 0), e)
         else:
             w = cfg.intermediate_size
             self.w_gate_up, self.w_down = e(2 * w, h), e(h, w)
@@ -277,12 +302,7 @@ class _Layer:
     def published(self, p: str, cfg: DeepseekV2Config) -> Iterator[Tuple[str, torch.Tensor]]:
         yield p + "input_layernorm.weight", self.ln_in
         yield p + "post_attention_layernorm.weight", self.ln_post
-        a = p + "self_attn."
-        yield a + "q_proj.weight", self.q_proj
-        yield a + "kv_a_proj_with_mqa.weight", self.kv_a
-        yield a + "kv_a_layernorm.weight", self.kv_norm
-        yield a + "kv_b_proj.weight", self.kv_b
-        yield a + "o_proj.weight", self.o_proj
+        yield from mla_published(self, p + "self_attn.")
         m = p + "mlp."
         if self.moe:
             yield m + "gate.weight", self.gate
@@ -295,10 +315,24 @@ class _Layer:
             m = m + "shared_experts."
             if not cfg.n_shared_experts:
                 return
-        width = self.w_down.shape[1]
-        yield m + "gate_proj.weight", self.w_gate_up[:width]
-        yield m + "up_proj.weight", self.w_gate_up[width:]
-        yield m + "down_proj.weight", self.w_down
+        yield from mlp_published(self, m)
+
+
+def mla_published(layer, a: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Latent attention's published tensors under the prefix ``a``."""
+    yield a + "q_proj.weight", layer.q_proj
+    yield a + "kv_a_proj_with_mqa.weight", layer.kv_a
+    yield a + "kv_a_layernorm.weight", layer.kv_norm
+    yield a + "kv_b_proj.weight", layer.kv_b
+    yield a + "o_proj.weight", layer.o_proj
+
+
+def mlp_published(layer, m: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    """A SwiGLU MLP's (``w_gate_up``, ``w_down``) published tensors under ``m``."""
+    width = layer.w_down.shape[1]
+    yield m + "gate_proj.weight", layer.w_gate_up[:width]
+    yield m + "up_proj.weight", layer.w_gate_up[width:]
+    yield m + "down_proj.weight", layer.w_down
 
 
 class LatentCache:
@@ -324,12 +358,14 @@ class DeepseekV2Model:
     """The decoder's tensors and its two paths: ``prefill`` of packed prompts
     and ``decode_step`` of slots."""
 
+    LAYER = _Layer
+
     def __init__(self, config: DeepseekV2Config, device: DeviceLike = "cuda"):
         self.config = cfg = config
         self.device = dev = resolve_device(device)
         self.dtype = dt = getattr(torch, cfg.dtype)
         self.embed = torch.empty((cfg.vocab_size, cfg.hidden_size), dtype=dt, device=dev)
-        self.layers = [_Layer(cfg, i, dt, dev) for i in range(cfg.num_hidden_layers)]
+        self.layers = [self.LAYER(cfg, i, dt, dev) for i in range(cfg.num_hidden_layers)]
         self.norm = torch.empty((cfg.hidden_size,), dtype=dt, device=dev)
         self.lm_head = torch.empty((cfg.vocab_size, cfg.hidden_size), dtype=dt, device=dev)
         self.scale = softmax_scale(cfg)
@@ -338,6 +374,8 @@ class DeepseekV2Model:
         self.top_k = cfg.num_experts_per_tok
         # 1 .. E: sorted expert ids below each of these end each expert's group.
         self.expert_ends = torch.arange(1, (cfg.n_routed_experts or 0) + 1, device=dev)
+        # (first, count) of the experts an expert share holds; None: all of them.
+        self.held: Optional[Tuple[int, int]] = None
         # Each expert layer's chosen experts, appended while not None.
         self.route_log: Optional[List[torch.Tensor]] = None
         # Each layer's attention input (normed) and output at the rows
@@ -357,6 +395,11 @@ class DeepseekV2Model:
 
     def num_params(self) -> int:
         return sum(t.numel() for _, t in self.published())
+
+    @staticmethod
+    def build_kernels() -> None:
+        """Compile the card's kernels of the decode step."""
+        mla.build()
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, torch.Tensor]) -> None:
@@ -392,15 +435,18 @@ class DeepseekV2Model:
         return freqs.cos() * self.rope_m, freqs.sin() * self.rope_m
 
     def _qkv(self, layer: _Layer, h: torch.Tensor, cos, sin):
-        """(q_nope [T, nh, nope], q_pe [T, nh, rope] roped, latent [T, r + rope])."""
+        """(q_nope [T, nh, nope], q_pe [T, nh, rope] roped, latent [T, r + rope]);
+        ``cos`` and ``sin`` None leave the rope columns unrotated."""
         cfg = self.config
         t, nh, r = h.shape[0], cfg.num_attention_heads, cfg.kv_lora_rank
         q = F.linear(h, layer.q_proj).view(t, nh, cfg.qk_head_dim)
         kv = F.linear(h, layer.kv_a)
         c = rms_norm(kv[:, :r], layer.kv_norm, cfg.rms_norm_eps)
-        # The heads' rope queries and the shared rope key, rotated together.
-        pe = apply_rope(torch.cat([q[..., cfg.qk_nope_head_dim :], kv[:, None, r:]], dim=1),
-                        cos[:, None], sin[:, None])
+        # The heads' rope queries and the shared rope key, rotated together
+        # (left as they are without rope: ``cos`` None).
+        pe = torch.cat([q[..., cfg.qk_nope_head_dim :], kv[:, None, r:]], dim=1)
+        if cos is not None:
+            pe = apply_rope(pe, cos[:, None], sin[:, None])
         return q[..., : cfg.qk_nope_head_dim], pe[:, :nh], torch.cat([c, pe[:, nh]], dim=-1)
 
     @staticmethod
@@ -460,13 +506,22 @@ class DeepseekV2Model:
         return F.linear(o.transpose(0, 1).reshape(s, nh * cfg.v_head_dim), layer.o_proj)
 
     def route(self, layer: _Layer, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(weights [T, k] f32, experts [T, k]): the softmax gate in float32,
-        greedy top-k, not renormalised, times ``routed_scaling_factor``."""
+        """(weights [T, k] f32, experts [T, k]) over all routed experts, the
+        gate in float32: a softmax and greedy top-k; or, with the layer's
+        ``score_bias``, sigmoid scores, the top-k of score + bias chosen and
+        the chosen raw scores as weights. Renormalised where
+        ``norm_topk_prob``, times ``routed_scaling_factor``."""
         cfg = self.config
-        scores = torch.softmax(F.linear(h.float(), layer.gate_f32), dim=-1)
-        weight, idx = torch.topk(scores, self.top_k, dim=-1, sorted=False)
+        logits = F.linear(h.float(), layer.gate_f32)
+        if layer.score_bias is None:
+            weight, idx = torch.topk(torch.softmax(logits, dim=-1), self.top_k, dim=-1,
+                                     sorted=False)
+        else:
+            scores = torch.sigmoid(logits)
+            idx = torch.topk(scores + layer.score_bias, self.top_k, dim=-1, sorted=False).indices
+            weight = scores.gather(1, idx)
         if self.top_k > 1 and cfg.norm_topk_prob:
-            weight = weight / weight.sum(-1, keepdim=True)
+            weight = weight / (weight.sum(-1, keepdim=True) + 1e-20)
         if cfg.routed_scaling_factor != 1.0:
             weight = weight * cfg.routed_scaling_factor
         return weight, idx
@@ -489,12 +544,18 @@ class DeepseekV2Model:
         """(the routed experts' weighed sum, the chosen experts): the
         token-expert pairs sorted by expert, each expert's product over its
         group by one grouped product a matrix (``torch._grouped_mm``, the
-        groups' ends as offsets), so the host never waits for the counts."""
+        groups' ends as offsets), so the host never waits for the counts.
+        With an expert share (``held``) only the held experts' pairs are
+        computed: the others sort past the last group, whose end the grouped
+        products stop at, and their rows are summed into a spare row."""
         n, hidden = h.shape
-        k, e = self.top_k, layer.w13.shape[0]
+        k = self.top_k
         weight, idx = self.route(layer, h)
         profiling.count("moe.pairs", n * k)
         flat = idx.reshape(-1)
+        if self.held is not None:
+            lo, e = self.held
+            flat = torch.where((flat >= lo) & (flat < lo + e), flat - lo, e)
         order = torch.argsort(flat, stable=True)
         # Each group's end in the sorted pairs; searchsorted, unlike bincount,
         # sizes nothing from the data, so nothing is read back.
@@ -503,9 +564,15 @@ class DeepseekV2Model:
         up = torch._grouped_mm(h[token], layer.w13, offs=ends)
         half = up.shape[-1] // 2
         y = torch._grouped_mm(F.silu(up[:, :half]) * up[:, half:], layer.w2, offs=ends)
-        out = torch.zeros((n, hidden), dtype=torch.float32, device=h.device)
-        out.index_add_(0, token, y.float() * weight.reshape(-1)[order][:, None])
-        return out.to(h.dtype), idx
+        if self.held is None:
+            out = torch.zeros((n, hidden), dtype=torch.float32, device=h.device)
+            out.index_add_(0, token, y.float() * weight.reshape(-1)[order][:, None])
+            return out.to(h.dtype), idx
+        profiling.count_device("moe.local_pairs", ends[-1])
+        dest = torch.where(torch.arange(n * k, device=h.device) < ends[-1], token, n)
+        out = torch.zeros((n + 1, hidden), dtype=torch.float32, device=h.device)
+        out.index_add_(0, dest, y.float() * weight.reshape(-1)[order][:, None])
+        return out[:n].to(h.dtype), idx
 
     def _ffn(self, layer: _Layer, h: torch.Tensor) -> torch.Tensor:
         if layer.moe:
@@ -519,7 +586,7 @@ class DeepseekV2Model:
     def _layers(self, x: torch.Tensor, attend) -> torch.Tensor:
         eps = self.config.rms_norm_eps
         for i, layer in enumerate(self.layers):
-            with profiling.device_range("mla"):
+            with profiling.device_range(layer.mixer):
                 h = rms_norm(x, layer.ln_in, eps)
                 a = attend(layer, i, h)
                 if self.attn_log is not None:
@@ -531,10 +598,10 @@ class DeepseekV2Model:
 
     # -- the two paths ----------------------------------------------------------------
 
-    @torch.inference_mode()
-    def prefill(self, prompts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, LatentCache]:
-        """Each prompt's ids [L_p] (on the device) once: (the logits [P,
-        vocab] f32 at each prompt's last position, the cache of their latents)."""
+    def pack(self, prompts: Sequence[torch.Tensor]) -> Dict:
+        """The prompts' ids packed: ``tok`` [T], ``lens`` [P], ``starts`` [P],
+        each token's prompt ``pid``, ``pos`` in it and ``flat`` position
+        (prompt * Lp + pos) in a padded [P, Lp] layout, and ``p``, ``lp``."""
         dev = self.device
         lens = torch.tensor([len(p) for p in prompts], dtype=torch.long, device=dev)
         p, lp = len(prompts), max(len(x) for x in prompts)
@@ -542,7 +609,17 @@ class DeepseekV2Model:
         pid = torch.repeat_interleave(torch.arange(p, device=dev), lens)
         starts = torch.cumsum(lens, 0) - lens
         pos = torch.arange(tok.shape[0], device=dev) - starts[pid]
-        pack = {"flat": pid * lp + pos}
+        return {"tok": tok, "lens": lens, "starts": starts, "pos": pos, "pid": pid,
+                "flat": pid * lp + pos, "p": p, "lp": lp}
+
+    @torch.inference_mode()
+    def prefill(self, prompts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, LatentCache]:
+        """Each prompt's ids [L_p] (on the device) once: (the logits [P,
+        vocab] f32 at each prompt's last position, the cache of their latents)."""
+        dev = self.device
+        pack = self.pack(prompts)
+        tok, lens, starts, pos, p, lp = (pack[k] for k in ("tok", "lens", "starts", "pos", "p",
+                                                           "lp"))
         cache = [torch.zeros((p, lp, self.config.latent_dim), dtype=self.dtype, device=dev)
                  for _ in self.layers]
         cos, sin = self.rope(pos)
@@ -671,13 +748,15 @@ class _Samples:
 class DeepseekV2LM:
     """Batched sampler over ``DeepseekV2Model`` on ``device``."""
 
+    CONFIG, MODEL = DeepseekV2Config, DeepseekV2Model
+
     def __init__(self, config: Optional[DeepseekV2Config] = None, seed: int = 0,
                  device: DeviceLike = "cuda", tokenizer: Optional[WordTokenizer] = None):
-        self.config = config or DeepseekV2Config()
-        self.model = DeepseekV2Model(self.config, device)
+        self.config = config or self.CONFIG()
+        self.model = self.MODEL(self.config, device)
         self.device = self.model.device
         if self.device.type == "cuda":
-            mla.build()  # the decode kernel, at set-up rather than at the first step
+            self.model.build_kernels()  # at set-up rather than at the first step
         self.model.draw_weights(seed)
         self.tokenizer = tokenizer or WordTokenizer(min(100_000, self.config.vocab_size - 2))
         if self.tokenizer.eos >= self.config.vocab_size:

@@ -8,9 +8,12 @@ most common one without embeddings); plus the type-token lexical diversity
 and, for a scored generator, the spread of the samples' mean
 log-probabilities.
 
-The generator is any ``llm/base.py::Generator``: TinyLM, or
+The generator is any ``llm/base.py::Generator``: TinyLM,
 ``llm/deepseek_v2.py::DeepseekV2LM``, which prefills each example's prompt
-once for its K samples and scores them as TinyLM does.
+once for its K samples and scores them as TinyLM does, or
+``llm/kimi_linear.py::KimiLinearLM``, which does the same through its KDA
+layers' recurrent states (each prompt's end state copied to its K slots)
+and its latent attention.
 
 The default answer embedder is the port's ``NgramHashEmbedder(dim=384)``,
 whose seeded table differs from the JAX one (``convert.embedding_table``

@@ -47,15 +47,18 @@ Spans (where; clock):
 - ``fused`` (the fused query) with ``fused.dense_pool``, ``fused.bm25_pool``
   and ``fused.tail`` (the union, the fusion and the top-k); host and CUDA;
 - ``generate`` (``llm/deepseek_v2.py::DeepseekV2LM.generate_batch_scored``,
-  one a call, ``n`` = rows) with ``generate.encode`` (tokenizing the
-  distinct prompts, the slots, the uploads), ``generate.prefill`` (each
-  distinct prompt once; host and CUDA, ``n`` = prompt tokens),
-  ``generate.fork`` (the slots' caches and first samples; host and CUDA),
+  which ``llm/kimi_linear.py::KimiLinearLM`` runs too; one a call, ``n`` =
+  rows) with ``generate.encode`` (tokenizing the distinct prompts, the
+  slots, the uploads), ``generate.prefill`` (each distinct prompt once;
+  host and CUDA, ``n`` = prompt tokens), ``generate.fork`` (the slots'
+  caches, the KDA layers' states and conv tails copied to each slot
+  included, and first samples; host and CUDA),
   ``generate.decode`` (the decode loop; host and CUDA, ``n`` = steps) and
   ``generate.readback`` (the samples' copy to the host and their texts);
-- per layer, ``mla`` (the attention block) and ``moe`` (the expert layer;
-  ``mlp`` for a dense one): ``device_range``s, which name the device
-  trace's kernels only while a ``torch.profiler`` records and keep no span;
+- per layer, ``mla`` (a latent-attention block), ``kda`` (a Kimi Delta
+  Attention block) and ``moe`` (the expert layer; ``mlp`` for a dense one):
+  ``device_range``s, which name the device trace's kernels only while a
+  ``torch.profiler`` records and keep no span;
 - set-up: ``bm25.build`` (``BM25Index.add_documents``), ``bm25.sync`` (a
   rebuild of its device layout), ``dense.add`` (``DenseIndex.add_documents``
   and ``add_precomputed``), ``build.compile`` (a native library compiled).
@@ -80,7 +83,18 @@ cached positions each row's decode steps attend over, summed), ``gen.tokens``
 expert layer routed) and ``mla.decode_kernel`` (launches of the latent
 attention's decode kernel, ``ops/mla_decode.py::cuda_mla_decode``: one a
 layer a decode step on the card, so a window's count is the layers times
-its ``gen.decode_steps``; the CPU's plain path counts none).
+its ``gen.decode_steps``; the CPU's plain path counts none);
+``moe.local_pairs`` (the pairs an expert share computed, those routed to
+the experts it holds; counted on the device, ``count_device``); and for
+KDA layers (``ops/kda.py``) ``kda.prefill_tokens`` (prompt tokens a call's
+chunked prefill ran through them), ``kda.decode_kernel`` (launches of the
+decode kernel, ``cuda_kda_decode``: one a KDA layer a decode step on the
+card, none on the CPU) and ``kda.state_bytes`` (the states' bytes a decode
+step read and wrote, twice a state's size a layer a step, either path).
+
+``count_device`` adds a one-element device tensor's value, read only when
+the counters are (``counters``, ``take``), so counting never waits for the
+device.
 
 A span's ``n`` may be set inside its block (``with span(...) as s:``,
 ``s`` None while off). ``device_sync`` is a barrier on the device of a tensor.
@@ -107,6 +121,8 @@ _local = threading.local()
 _kept: List[tuple] = []
 _dropped = 0
 _counters: Dict[str, int] = defaultdict(int)
+# (name, one-element device tensor) counted but not read yet.
+_pending: List[tuple] = []
 
 
 class Span(NamedTuple):
@@ -215,9 +231,27 @@ def count(name: str, n: int = 1) -> None:
         _counters[name] += int(n)
 
 
+def count_device(name: str, n: torch.Tensor) -> None:
+    """Add the value of the one-element tensor ``n`` to the counter ``name``
+    while the tracer is on. It is read with the counters, so counting never
+    waits for the device."""
+    if not _on:
+        return
+    with _lock:
+        _pending.append((name, n))
+
+
+def _settle() -> None:
+    """Read the pending device counts into the counters (under ``_lock``)."""
+    for name, n in _pending:
+        _counters[name] += int(n)
+    _pending.clear()
+
+
 def counters() -> Dict[str, int]:
     """The counters counted since the last ``take``, left as they are."""
     with _lock:
+        _settle()
         return dict(_counters)
 
 
@@ -227,6 +261,7 @@ def take() -> Dict:
     waiting for each span's end event."""
     global _kept, _dropped
     with _lock:
+        _settle()
         kept, dropped, counters = _kept, _dropped, dict(_counters)
         _kept, _dropped = [], 0
         _counters.clear()
