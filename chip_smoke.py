@@ -9,13 +9,15 @@ Phases, each printing one line "phase <name> ok <seconds>":
   build    the four CUDA libraries (the heap kernel csrc/cosine_topk.cu and
            the large-k kernels csrc/cosine_topk_large.cu, one nvcc each,
            started together, then the latent-attention decode kernel
-           csrc/mla_decode.cu and the KDA decode kernel csrc/kda_decode.cu)
+           csrc/mla_decode.cu and the KDA library of the decode kernel
+           csrc/kda_decode.cu and the prefill kernel csrc/kda_prefill.cu)
            and the native tokenizer (g++), from the sources in the checkout,
            into build/rag_uq_tpu_torch/; prints the compiler's registers,
            spills and shared memory, and the counts of HGMMA (wgmma) and
            UTMALDG (TMA load) instructions in each of the first three
            libraries' SASS, and fails if either is zero in any (the KDA
-           kernel, bound by its state's bytes, uses neither);
+           kernels, bound by the state's bytes and by float32 arithmetic,
+           use neither);
   kernel   the heap kernel against its plain PyTorch twin on the card: the
            edge cases of tests/test_pallas_topk.py, then at the main path's
            shapes B = 2048 and 1, k = 128 and MAX_K, a ragged query tile, a
@@ -75,9 +77,19 @@ Phases, each printing one line "phase <name> ok <seconds>":
            output's error within 1.25x the twin's, its new state within
            1e-5 of the state's RMS, the conv tail moved as the twin moves
            it; at the cell's shape the kernel (CUDA events), its bound and
-           the twin (cli/profile_kda_decode.py's measure); and the
-           latent-attention kernel at the cell's 32 heads (t = 0, 49, 98),
-           within mla.ERR_MARGIN of its twin;
+           the twin (cli/profile_kda_decode.py's measure); the KDA prefill
+           kernel (ops/kda.py's cuda_kda_prefill) against the recurrence in
+           float64 and the chunked form in float32 at its CASES: the
+           cell's prefill (32 prompts of 1,100-1,400 positions, padded to
+           the longest, x 32 heads of 128) and the edges (one sequence of
+           77 positions; 3 prompts x 2 heads of 45, 333 and 1,000, decays
+           up to exp(-8) a position): every error under kda.PREFILL_TOL of
+           the values' RMS, and a padded tail (g = 0, beta = 0) leaving the
+           outputs and end states bit for bit; at the cell's shape the
+           kernel (CUDA events), its bound and the chunked form
+           (cli/profile_kda_prefill.py's measure); and the latent-attention
+           kernel at the cell's 32 heads (t = 0, 49, 98), within
+           mla.ERR_MARGIN of its twin;
   slice    a 100k-passage index at bench.py's shape behind a QueryService
            (max_batch 2048, scatter-mode BM25, a pool7/maxnorm/binary router
            with seeded random weights) answering three 2048-query requests
@@ -263,6 +275,7 @@ from rag_uq_tpu_torch.cli import parity as parity_cli
 from rag_uq_tpu_torch.cli import parity_e2e as parity_e2e_cli
 from rag_uq_tpu_torch.cli import profile_fused as profile_fused_cli
 from rag_uq_tpu_torch.cli import profile_kda_decode as profile_kda_cli
+from rag_uq_tpu_torch.cli import profile_kda_prefill as profile_prefill_cli
 from rag_uq_tpu_torch.cli import profile_mla_decode as profile_mla_cli
 from rag_uq_tpu_torch.cli import run_pipeline as run_pipeline_cli
 from rag_uq_tpu_torch.cli import serve as serve_mod
@@ -512,7 +525,7 @@ def phase_build() -> None:
     log(f"  latent-attention decode library built in {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     recurrent = kda.build()
-    log(f"  KDA decode library built in {time.perf_counter() - t0:.2f}s")
+    log(f"  KDA library (decode and prefill kernels) built in {time.perf_counter() - t0:.2f}s")
     for lib in (built, large, decode, recurrent):
         log(f"  nvcc {lib.path.name}: {lib.seconds:.2f}s")
         for line in lib.log.splitlines():
@@ -720,8 +733,9 @@ def phase_mla(seed: int) -> dict:
 
 def phase_kda(seed: int) -> dict:
     """The KDA decode kernel against its plain twin and float64 at
-    KDA_SHAPES, timed at the cell's shape; the latent-attention kernel at
-    the Kimi Linear cell's 32 heads."""
+    KDA_SHAPES, and the prefill kernel against the chunked form and float64
+    at profile_kda_prefill's CASES, each timed at the cell's shape; the
+    latent-attention kernel at the Kimi Linear cell's 32 heads."""
     cases = []
     for name, rows, heads in KDA_SHAPES:
         args_t = profile_kda_cli.inputs(rows, heads, seed + rows, "cuda")
@@ -738,6 +752,26 @@ def phase_kda(seed: int) -> dict:
                 f"{row['plain_ms']:.4f} ms")
             cases[-1].update({k: row[k] for k in ("kernel_ms", "bound_ms", "plain_ms")})
         del args_t
+    prefill = []
+    for name, *_ in profile_prefill_cli.CASES:
+        args_t = profile_prefill_cli.case_inputs(name, seed, "cuda")
+        seqs, tokens = args_t[0].shape[:2]
+        err = profile_prefill_cli.errors(args_t)
+        err["padded_tail_equal"] = profile_prefill_cli.padded_tail_equal(args_t)
+        log(f"  kda_prefill {name} ({seqs} sequences of {tokens} positions): {json.dumps(err)}")
+        if max(err[k] for k in ("kernel_err", "kernel_state_err", "vs_plain_err",
+                                "vs_plain_state_err")) >= kda.PREFILL_TOL \
+                or not err["padded_tail_equal"]:
+            raise AssertionError(f"kda_prefill {name}: {err}")
+        prefill.append({"shape": name, "seqs": seqs, "tokens": tokens, **err})
+        if name == "cell":
+            row = profile_prefill_cli.measure(args_t)
+            log(f"  kda_prefill cell: kernel {row['kernel_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['roofline_pct']:.1f}%), chunked form "
+                f"{row['plain_ms']:.4f} ms")
+            prefill[-1].update({k: row[k] for k in ("kernel_ms", "bound_ms", "plain_ms")})
+        del args_t
+    torch.cuda.empty_cache()
     lens = profile_mla_cli.cell_lens(32, seed)
     mla32 = []
     for t in MLA_TIMED_T:
@@ -753,7 +787,8 @@ def phase_kda(seed: int) -> dict:
     cell = cases[0]
     return {"name": "kda_decode", "route": "cuda", "source": "rag_uq_tpu_torch/csrc/kda_decode.cu",
             "replaces": None, "kernel_ms": cell["kernel_ms"], "bound_ms": cell["bound_ms"],
-            "plain_ms": cell["plain_ms"], "cases": cases, "mla_32_heads": mla32}
+            "plain_ms": cell["plain_ms"], "cases": cases, "mla_32_heads": mla32,
+            "prefill": {"source": "rag_uq_tpu_torch/csrc/kda_prefill.cu", "cases": prefill}}
 
 
 def same_merge(mv, mi, part_v, part_i, k: int, what: str) -> None:

@@ -38,12 +38,15 @@ head are whole on every chip. Without it the layer holds all its experts.
 ``LatentCache``'s latents: a prompt's shared by its slots, each slot's own
 for its generated tokens. KDA layers keep a fixed-size state a row, [H, K,
 V] float32, and the conv tail (the last ``short_conv_kernel_size - 1``
-inputs). The prefill ends each distinct prompt's recurrence once (the
-chunked form, ``ops/kda.py::kda_chunked``), and ``fork`` copies its end
-state and tail to each of its slots, since the slots' samples diverge from
-their first token. A decode step updates a KDA layer's states in place by
-one kernel launch (``ops/kda.py::kda_decode``: ``csrc/kda_decode.cu`` on a
-card, the plain twin on the CPU).
+inputs). The prefill ends each distinct prompt's recurrence once
+(``ops/kda.py::kda_chunked``: one launch a layer of the ``sm_90a`` kernel
+``csrc/kda_prefill.cu`` on a card, each sequence's float32 state in
+registers from its first token to its last; the chunked form in plain
+torch on the CPU), and ``fork`` copies its end state and tail to each of
+its slots, since the slots' samples diverge from their first token. A
+decode step updates a KDA layer's states in place by one kernel launch
+(``ops/kda.py::kda_decode``: ``csrc/kda_decode.cu`` on a card, the plain
+twin on the CPU).
 
 Weights carry the published checkpoint's names and are drawn from a seed
 per named tensor (``draw_tensor``) without a checkpoint. ``KimiLinearLM``
@@ -371,8 +374,9 @@ class KimiLinearModel(DeepseekV2Model):
 
     def _kda_prefill(self, layer: _KimiLayer, h: torch.Tensor, pack: Dict,
                      cache: HybridCache) -> torch.Tensor:
-        """The chunked recurrence over packed prompt tokens h [T, hidden];
-        leaves each prompt's end state and conv tail in ``cache``."""
+        """The recurrence over packed prompt tokens h [T, hidden]
+        (``kda.kda_chunked``: the kernel on a card); leaves each prompt's
+        end state and conv tail in ``cache``."""
         cfg = self.config
         nh, kd = cfg.kda_heads, cfg.kda_head_dim
         t = h.shape[0]
@@ -391,8 +395,8 @@ class KimiLinearModel(DeepseekV2Model):
         beta = h.new_zeros((p * lp, nh, 1), dtype=torch.float32)
         beta[flat] = torch.sigmoid(b.float())[..., None]
 
-        def by_head(z):  # [P, Lp, H, d] -> [P * H, Lp, d]
-            return z.reshape(p, lp, nh, -1).transpose(1, 2).reshape(p * nh, lp, -1)
+        def by_head(z):  # [P, Lp, H, d] -> [P * H, Lp, d], contiguous
+            return z.reshape(p, lp, nh, -1).transpose(1, 2).reshape(p * nh, lp, -1).contiguous()
 
         o, state = kda.kda_chunked(by_head(kda.l2norm(c[:, :, 0]) * kd ** -0.5),
                                    by_head(kda.l2norm(c[:, :, 1])), by_head(c[:, :, 2]),

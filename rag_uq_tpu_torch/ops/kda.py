@@ -15,7 +15,7 @@ q and k are L2-normalised over the head's K channels (``l2norm``: fla's
 the log decay (``kda_gate``) and beta_t in (0, 1).
 
 - ``kda_recurrent``: token by token, the definition (the tests' yardstick).
-- ``kda_chunked``: the prefill's chunked form of the same recurrence.
+- ``kda_chunked_plain``: the prefill's chunked form of the same recurrence.
   Within a chunk of C tokens with cumulative log decays b_t (a running sum
   of g inside the chunk), the pseudo-values W = (I + A)^-1 (beta V - beta
   (K * exp b) S_0) with A_ts = beta_t sum_c k_tc k_sc exp(b_tc - b_sc) for
@@ -23,6 +23,12 @@ the log decay (``kda_gate``) and beta_t in (0, 1).
   exp(b_tc - b_sc) for s <= t, and the chunk's end state exp(b_C) S_0 +
   (K * exp(b_C - b))^T W. The pairwise [C, C, K] decays are formed from
   differences b_t - b_s with s <= t only, so every exponent is <= 0.
+- ``cuda_kda_prefill``: the prefill as the CUDA kernel
+  ``csrc/kda_prefill.cu`` (``kda_prefill_kernel``): ``kda_recurrent``'s
+  order token by token, each sequence's float32 state in registers from
+  its first token to its last, every input read once, each output row and
+  end state written once. ``kda_chunked`` takes the chunked form for a
+  tensor on the CPU and the kernel for a CUDA tensor, with no fallback.
 - ``kda_decode_plain`` / ``cuda_kda_decode``: one decode step of a layer's
   slots from the projections on: the short convolution over each slot's
   conv tail and the new input, SiLU, the L2 norms, the gate, beta, the
@@ -32,8 +38,10 @@ the log decay (``kda_gate``) and beta_t in (0, 1).
   twin for a tensor on the CPU and the kernel for a CUDA tensor; the kernel
   never falls back. It reads and writes each state once.
 
-The kernel's sums run in another order than the twin's; otherwise both
-compute in float32 from the same bf16 inputs and round the output once.
+The decode kernel's sums run in another order than the twin's; otherwise
+both compute in float32 from the same bf16 inputs and round the output
+once. The prefill takes float32 inputs and computes in float32 on both
+paths, in another order of sums.
 """
 
 from __future__ import annotations
@@ -50,17 +58,27 @@ from rag_uq_tpu_torch.ops.cosine_topk import NVCC_FLAGS, nvcc_path
 from rag_uq_tpu_torch.utils import profiling
 from rag_uq_tpu_torch.utils.build import Built, build_shared_library
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "kda_decode.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = (CSRC / "kda_decode.cu", CSRC / "kda_prefill.cu")  # one library
 HEAD = 128  # the kernel's key and value width of a head
 TAPS = 4  # the short convolution's width
 CHUNK = 32  # tokens a chunk of the chunked prefill
 L2_EPS = 1e-6  # fla's l2norm
+# The prefill kernel's widest error against the recurrence in float64 and
+# against the chunked form in float32, over the RMS of all the values
+# compared: float32 roundings of a state carried over up to 1,400
+# positions, in another order of sums. At the cell's prefill the kernel
+# reads 1.5e-5 (outputs) and 2.7e-5 (end states) against float64, the
+# chunked form up to 1.2e-5 at the edges; a wrong recurrence reads O(1).
+PREFILL_TOL = 1e-4
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # rag_kda_decode's arguments: x, x_ld, tail, conv_w, f, f_ld, a_log, dt_bias,
 # beta, beta_ld, gate, gate_ld, norm_w, state, out; rows, heads; eps; stream.
 ARGTYPES = [_P, _L, _P, _P, _P, _L, _P, _P, _P, _L, _P, _L, _P, _P, _P, _I, _I,
             ctypes.c_float, _P]
+# rag_kda_prefill's: q, k, v, g, beta, out, state; sequences, tokens; stream.
+PREFILL_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -105,22 +123,24 @@ def kda_recurrent(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Te
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence token by token: q, k, g [B, T, K], v [B, T, V], beta
     [B, T] (q and k normalised, q scaled), state [B, K, V] (zeros if None)
-    -> (o [B, T, V], the end state), float32."""
+    -> (o [B, T, V], the end state), in float32, or in float64 for float64 q."""
     b, t, kd = q.shape
-    s = q.new_zeros((b, kd, v.shape[-1]), dtype=torch.float32) if state is None \
-        else state.float().clone()
+    dt = torch.promote_types(q.dtype, torch.float32)
+    s = q.new_zeros((b, kd, v.shape[-1]), dtype=dt) if state is None \
+        else state.to(dt, copy=True)
     out = []
     for i in range(t):
-        s = s * g[:, i].float().exp()[..., None]
-        ki = k[:, i].float()
-        w = beta[:, i, None].float() * (v[:, i].float() - torch.einsum("bk,bkv->bv", ki, s))
+        s = s * g[:, i].to(dt).exp()[..., None]
+        ki = k[:, i].to(dt)
+        w = beta[:, i, None].to(dt) * (v[:, i].to(dt) - torch.einsum("bk,bkv->bv", ki, s))
         s = s + ki[..., None] * w[:, None, :]
-        out.append(torch.einsum("bk,bkv->bv", q[:, i].float(), s))
+        out.append(torch.einsum("bk,bkv->bv", q[:, i].to(dt), s))
     return torch.stack(out, 1), s
 
 
-def kda_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-                beta: torch.Tensor, chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+def kda_chunked_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                      beta: torch.Tensor, chunk: int = CHUNK
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``kda_recurrent`` from S_0 = 0 in chunks of ``chunk`` tokens (float32
     inputs): (o [B, T, V], the end state [B, K, V]). A position with g = 0
     and beta = 0 leaves the state as it is, so padding at the end of a
@@ -223,15 +243,18 @@ def kda_decode_f64(x, tail, conv_w, f, a_log, dt_bias, beta, gate, norm_w, state
 # -- the kernel -----------------------------------------------------------------------
 
 def build() -> Built:
-    """Compile the kernel (once per process; cached on disk by source hash)."""
+    """Compile both kernels into one library (once per process; cached on
+    disk by source hash)."""
     global _lib, _built
     with _lock:
         if _lib is None:
-            built = build_shared_library("rag_kda_decode", [SOURCE], [nvcc_path(), *NVCC_FLAGS],
+            built = build_shared_library("rag_kda", SOURCES, [nvcc_path(), *NVCC_FLAGS],
                                          timeout_s=600)
             lib = ctypes.CDLL(str(built.path))
             lib.rag_kda_decode.argtypes = ARGTYPES
-            lib.rag_kda_decode.restype = ctypes.c_int
+            lib.rag_kda_prefill.argtypes = PREFILL_ARGTYPES
+            for fn in (lib.rag_kda_decode, lib.rag_kda_prefill):
+                fn.restype = ctypes.c_int
             _lib, _built = lib, built
         return _built
 
@@ -298,3 +321,56 @@ def kda_decode(x: torch.Tensor, tail: torch.Tensor, conv_w: torch.Tensor, f: tor
     profiling.count("kda.state_bytes", 2 * state.numel() * state.element_size())
     fn = kda_decode_plain if x.device.type == "cpu" else cuda_kda_decode
     return fn(x, tail, conv_w, f, a_log, dt_bias, beta, gate, norm_w, state, eps)
+
+
+def cuda_kda_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                     beta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel: ``kda_chunked_plain``'s function on a CUDA device, in
+    float32 throughout: (o [B, T, V], the end state [B, K, V]). It takes q,
+    k, v, g [B, T, 128] and beta [B, T], float32 and contiguous, and raises
+    before any launch on anything else."""
+    if q.dim() != 3 or any(t.shape != q.shape for t in (k, v, g)) \
+            or beta.shape != q.shape[:2]:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"g {tuple(g.shape)}, beta {tuple(beta.shape)}")
+    if q.shape[-1] != HEAD:
+        raise ValueError(f"the kernel takes heads {HEAD} wide, got {q.shape[-1]}")
+    args = {"q": q, "k": k, "v": v, "g": g, "beta": beta}
+    if any(t.dtype != torch.float32 for t in args.values()):
+        raise TypeError(f"the kernel takes float32 inputs, got "
+                        f"{ {n: str(t.dtype) for n, t in args.items()} }")
+    for name, t in args.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.device.type != "cuda":
+        raise ValueError(f"the KDA prefill kernel runs on a CUDA device, got {q.device}")
+    for name, t in args.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    b, t = q.shape[:2]
+    out = torch.empty_like(v)
+    state = torch.empty((b, HEAD, HEAD), dtype=torch.float32, device=q.device)
+    if _lib is None:
+        build()
+    rc = _lib.rag_kda_prefill(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                              beta.data_ptr(), out.data_ptr(), state.data_ptr(), b, t,
+                              torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"KDA prefill kernel launch failed: CUDA error {rc}")
+    cuda_kda_prefill.launches += 1
+    profiling.count("kda.prefill_kernel")
+    return out, state
+
+
+cuda_kda_prefill.launches = 0
+
+
+def kda_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                beta: torch.Tensor, chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prefill's recurrence from S_0 = 0 (float32 inputs): the chunked
+    form in chunks of ``chunk`` tokens for a tensor on the CPU, the kernel
+    for a CUDA tensor, which never falls back: (o [B, T, V], the end state
+    [B, K, V])."""
+    if q.device.type == "cpu":
+        return kda_chunked_plain(q, k, v, g, beta, chunk)
+    return cuda_kda_prefill(q, k, v, g, beta)

@@ -87,10 +87,13 @@ its ``gen.decode_steps``; the CPU's plain path counts none);
 ``moe.local_pairs`` (the pairs an expert share computed, those routed to
 the experts it holds; counted on the device, ``count_device``); and for
 KDA layers (``ops/kda.py``) ``kda.prefill_tokens`` (prompt tokens a call's
-chunked prefill ran through them), ``kda.decode_kernel`` (launches of the
-decode kernel, ``cuda_kda_decode``: one a KDA layer a decode step on the
-card, none on the CPU) and ``kda.state_bytes`` (the states' bytes a decode
-step read and wrote, twice a state's size a layer a step, either path).
+prefill ran through them), ``kda.prefill_kernel`` (launches of the prefill
+kernel, ``cuda_kda_prefill``: one a KDA layer a prefill on the card, none
+on the CPU, whose chunked form counts none), ``kda.decode_kernel``
+(launches of the decode kernel, ``cuda_kda_decode``: one a KDA layer a
+decode step on the card, none on the CPU) and ``kda.state_bytes`` (the
+states' bytes a decode step read and wrote, twice a state's size a layer a
+step, either path).
 
 ``count_device`` adds a one-element device tensor's value, read only when
 the counters are (``counters``, ``take``), so counting never waits for the

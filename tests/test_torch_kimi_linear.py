@@ -14,8 +14,10 @@ beside it.
 On a card (marked ``chip``, skipped without one; the file imports no JAX,
 so it runs there with ``python3 -m pytest tests/test_torch_kimi_linear.py
 --noconftest -m chip``): the KDA decode kernel against its twin and float64
-at the cell's shape and at edges, the latent-attention kernel at 32 heads,
-and a small model on the card against the reference.
+at the cell's shape and at edges, the KDA prefill kernel against the
+recurrence in float64 and the chunked form in float32 at the cell's shape
+and at edges, the latent-attention kernel at 32 heads, and a small model on
+the card against the reference.
 """
 
 import ast
@@ -154,6 +156,69 @@ def test_the_chunked_recurrence_is_the_token_recurrence(chunk):
     _, s_pad = kda.kda_chunked(pad(q, 0.2), pad(kk, 0.3), pad(vv, 1.0), pad(gate, 0.0),
                                pad(beta, 0.0), chunk=chunk)
     assert torch.allclose(s_pad, s_want, atol=1e-5)
+
+
+def _prefill_args(b=3, t=37, kd=16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = kda.l2norm(torch.randn(b, t, kd, generator=g)) * kd ** -0.5
+    k = kda.l2norm(torch.randn(b, t, kd, generator=g))
+    return (q, k, torch.randn(b, t, kd, generator=g), -torch.rand(b, t, kd, generator=g) * 8,
+            torch.rand(b, t, generator=g))
+
+
+@pytest.mark.parametrize("chunk", [5, kda.CHUNK])
+def test_the_prefill_dispatch_on_the_cpu_is_the_chunked_form_bit_for_bit(chunk):
+    args = _prefill_args(t=70, seed=chunk)
+    launches = kda.cuda_kda_prefill.launches
+    got, s_got = kda.kda_chunked(*args, chunk=chunk)
+    want, s_want = kda.kda_chunked_plain(*args, chunk=chunk)
+    assert torch.equal(got, want) and torch.equal(s_got, s_want)
+    assert kda.cuda_kda_prefill.launches == launches
+
+
+def test_the_token_recurrence_runs_in_float64_for_float64_inputs():
+    args = _prefill_args(seed=3)
+    o64, s64 = kda.kda_recurrent(*(x.double() for x in args))
+    o32, s32 = kda.kda_recurrent(*args)
+    assert o64.dtype == s64.dtype == torch.float64 and o32.dtype == torch.float32
+    assert torch.allclose(o32.double(), o64, atol=1e-5) and not torch.equal(o32.double(), o64)
+
+
+def _prefill_fault(name, args):
+    q, k, v, g, beta = args
+    if name == "float64":
+        return q.double(), k, v, g, beta
+    if name == "bfloat16_v":
+        return q, k, v.bfloat16(), g, beta
+    if name == "head_64":
+        return tuple(x[..., :64].contiguous() for x in args[:4]) + (beta,)
+    if name == "not_contiguous":
+        return q, k.transpose(0, 1).contiguous().transpose(0, 1), v, g, beta
+    if name == "v_shape":
+        return q, k, v[:, :-1], g, beta
+    if name == "beta_shape":
+        return q, k, v, g, beta[:, :-1]
+    return args  # "cpu": every check passes but the device's
+
+
+@pytest.mark.parametrize("fault,error", [
+    ("cpu", ValueError), ("float64", TypeError), ("bfloat16_v", TypeError),
+    ("head_64", ValueError), ("not_contiguous", ValueError), ("v_shape", ValueError),
+    ("beta_shape", ValueError)])
+def test_the_prefill_kernel_wrapper_refuses_before_any_launch(fault, error):
+    """The kernel takes float32, contiguous q, k, v, g [B, T, 128] and beta
+    [B, T] on a CUDA device; anything else raises before a launch."""
+    args = _prefill_fault(fault, _prefill_args(b=2, t=9, kd=kda.HEAD, seed=1))
+    launches = kda.cuda_kda_prefill.launches
+    profiling.take()
+    profiling.enable()
+    try:
+        with pytest.raises(error):
+            kda.cuda_kda_prefill(*args)
+    finally:
+        profiling.disable()
+    assert kda.cuda_kda_prefill.launches == launches
+    assert "kda.prefill_kernel" not in profiling.take()["counters"]
 
 
 def _decode_inputs(rows, heads, kd, seed):
@@ -356,6 +421,7 @@ def test_the_kda_and_share_counters_count_by_hand(lm32, tracer):
     assert c["kda.prefill_tokens"] == 10 and c["gen.decode_steps"] == steps == 5
     assert c["kda.state_bytes"] == 4 * steps * 2 * 4 * (2 * 16 * 16 * 4)
     assert "kda.decode_kernel" not in c  # the CPU runs the twin
+    assert "kda.prefill_kernel" not in c  # and the chunked form
     # Every logged expert set of the 4 expert layers, prefill and steps:
     # the pairs in rank 1's experts 8-15.
     assert len(routes) == 4 * (1 + steps)
@@ -410,6 +476,26 @@ def test_the_kda_kernel_matches_its_twin_and_float64(card, rows, heads):
 
 
 @pytest.mark.chip
+@pytest.mark.parametrize("shape", ["cell", "one_sequence", "two_heads"])
+def test_the_kda_prefill_kernel_matches_float64_and_the_chunked_form(card, shape):
+    """At the cell's prefill (32 prompts of 1,100-1,400 positions padded to
+    the longest, 32 heads: 1,024 sequences) and at edges: one sequence of 77
+    positions, and 3 prompts x 2 heads of 45, 333 and 1,000 positions, both
+    with decays up to exp(-8) a position. Then a padded tail (g = 0, beta =
+    0) leaves the outputs and the end states bit for bit as they were."""
+    from rag_uq_tpu_torch.cli import profile_kda_prefill as pp
+
+    args = pp.case_inputs(shape, 11, card)
+    launches = kda.cuda_kda_prefill.launches
+    err = pp.errors(args)
+    print(shape, err)
+    assert kda.cuda_kda_prefill.launches == launches + 1
+    assert err["kernel_err"] < kda.PREFILL_TOL and err["kernel_state_err"] < kda.PREFILL_TOL, err
+    assert err["vs_plain_err"] < kda.PREFILL_TOL and err["vs_plain_state_err"] < kda.PREFILL_TOL
+    assert pp.padded_tail_equal(args)
+
+
+@pytest.mark.chip
 def test_the_latent_attention_kernel_at_32_heads(card):
     from rag_uq_tpu_torch.cli import profile_mla_decode as pm
     from rag_uq_tpu_torch.ops import mla_decode as mla
@@ -439,5 +525,8 @@ def test_a_small_model_on_the_card_matches_the_reference(card):
     for t in range(9):
         got.append(lm.model.decode_step(ids[30 + t : 31 + t].repeat(2), None, cache, t)[0])
     assert kda.cuda_kda_decode.launches - launches == 9 * 4
+    prefills = kda.cuda_kda_prefill.launches
+    lm.model.prefill([ids[:30], ids[:7]])
+    assert kda.cuda_kda_prefill.launches - prefills == 4  # one a KDA layer
     err = (torch.stack(got) - want[29:39]).abs().max() / want.abs().max()
     assert err < 0.05, float(err)
